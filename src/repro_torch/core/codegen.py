@@ -1,0 +1,290 @@
+"""Schedule builders: level sets packed into ELL slabs (paper §IV).
+
+Each level is packed into an ELL *slab* — rows sorted by nnz, dependency
+columns/values padded to the level's max row width, stored transposed
+``(K, R)`` so neighbouring rows sit in neighbouring memory (GPU threads of a
+warp read them coalesced).  The executors that consume a :class:`Schedule`
+live in :mod:`repro_torch.core.packed` (plain torch ops) and
+:mod:`repro_torch.kernels` (hand-written CUDA); this module is host numpy
+only, array for array the same packing as the JAX package.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+
+from .csr import CSRMatrix
+from .levels import LevelSets, build_level_sets, compute_upper_levels
+
+__all__ = [
+    "LevelSlab",
+    "Schedule",
+    "EllMatrix",
+    "build_schedule",
+    "build_ell",
+    "slab_padded_flops",
+    "stack_sub_slabs",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class LevelSlab:
+    """One level's rows in padded ELL form, transposed ``(K, R)``.
+
+    ``rows`` (R,) row ids;  ``cols``/``vals`` (K, R) with zero-padding
+    (col 0 / val 0.0);  ``diag`` (R,).
+
+    ``sub_rows`` is the slab's intra-slab dependency chain (schedule
+    coarsening, :mod:`repro_torch.core.coarsen`): when non-empty it
+    partitions the R rows into consecutive *sub-slabs* that must execute
+    back-to-back in order — sub-slab ``t`` may depend on rows of sub-slabs
+    ``< t``.  An empty tuple means the classic one-level slab (all rows
+    mutually independent).
+
+    ``val_src``/``diag_src`` map each packed value back to its index in the
+    source matrix's ``data`` array (-1 for zero padding) — the symbolic side
+    of value-only numeric refresh.
+    """
+
+    rows: np.ndarray
+    cols: np.ndarray
+    vals: np.ndarray
+    diag: np.ndarray
+    sub_rows: tuple = ()
+    val_src: Optional[np.ndarray] = None   # (K, R) int64, -1 = padding
+    diag_src: Optional[np.ndarray] = None  # (R,) int64
+
+    @property
+    def R(self) -> int:
+        return self.rows.shape[0]
+
+    @property
+    def K(self) -> int:
+        return self.cols.shape[0]
+
+    @property
+    def depth(self) -> int:
+        """Length of the intra-slab dependency chain (1 = plain level)."""
+        return len(self.sub_rows) if self.sub_rows else 1
+
+    def sub_slabs(self):
+        """Iterate the chain as plain (depth-1) :class:`LevelSlab` views."""
+        if self.depth == 1:
+            yield dataclasses.replace(self, sub_rows=())
+            return
+        off = 0
+        for r in self.sub_rows:
+            yield LevelSlab(
+                rows=self.rows[off : off + r],
+                cols=self.cols[:, off : off + r],
+                vals=self.vals[:, off : off + r],
+                diag=self.diag[off : off + r],
+                val_src=None if self.val_src is None
+                else self.val_src[:, off : off + r],
+                diag_src=None if self.diag_src is None
+                else self.diag_src[off : off + r],
+            )
+            off += r
+
+
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    """Level-set execution schedule of a triangular matrix."""
+
+    n: int
+    slabs: List[LevelSlab]
+    level_of_row: np.ndarray
+    nnz: int
+
+    @property
+    def num_levels(self) -> int:
+        return len(self.slabs)
+
+    @property
+    def num_segments(self) -> int:
+        """Barrier-separated execution units: every slab — coarsened or not
+        — is one segment."""
+        return len(self.slabs)
+
+    @property
+    def total_depth(self) -> int:
+        """Sum of intra-slab chain depths = wavefront count actually swept
+        (equals the level count of the uncoarsened schedule)."""
+        return sum(s.depth for s in self.slabs)
+
+    def perm(self) -> np.ndarray:
+        """Schedule-order row permutation: ``perm[p]`` = original row id at
+        permuted position ``p``.  Each segment's output rows are a
+        contiguous slice of the permuted space (see :meth:`row_offsets`)."""
+        if not self.slabs:
+            return np.zeros(0, dtype=np.int64)
+        return np.concatenate([s.rows for s in self.slabs]).astype(np.int64)
+
+    def row_offsets(self) -> np.ndarray:
+        """(num_segments + 1,) permuted-space start offset of each segment."""
+        return np.concatenate(
+            [[0], np.cumsum([s.R for s in self.slabs])]).astype(np.int64)
+
+    def padded_flops(self, unroll_threshold: int = 0) -> int:
+        """FLOPs actually executed including padding waste."""
+        return sum(slab_padded_flops(s, unroll_threshold) for s in self.slabs)
+
+
+def slab_padded_flops(s: LevelSlab, unroll_threshold: int = 0) -> int:
+    """Executed FLOPs of one slab: chains do ``depth`` uniform sub-steps
+    padded to the widest sub-slab, slabs of at most ``unroll_threshold``
+    rows count their true nnz, plain slabs pay the full ELL pad."""
+    if s.depth > 1:
+        rmax = max(s.sub_rows)
+        return s.depth * (2 * s.K * rmax + rmax)
+    if s.R <= unroll_threshold:
+        return 2 * int(np.count_nonzero(s.vals)) + s.R
+    return 2 * s.K * s.R + s.R
+
+
+@dataclasses.dataclass(frozen=True)
+class EllMatrix:
+    """Whole-matrix ELL, transposed ``(K, n)``, with the value-source map
+    (-1 padding) recorded for value-only refresh."""
+
+    cols: np.ndarray  # (K, n)
+    vals: np.ndarray  # (K, n)
+    val_src: Optional[np.ndarray] = None  # (K, n) int64, -1 = padding
+
+    @property
+    def K(self) -> int:
+        return self.cols.shape[0]
+
+
+def _pack_rows(
+    L: CSRMatrix, rows: np.ndarray, sort_by_nnz: bool, *, diag_first: bool = False
+) -> LevelSlab:
+    """Pack the given rows into one ELL slab.
+
+    ``diag_first=False`` assumes lower-triangular storage (diagonal last in
+    each row, the forward-solve layout); ``diag_first=True`` assumes
+    upper-triangular storage (diagonal first — rows of ``L.transpose()``,
+    the backward-solve layout).  Either way the slab comes out identical in
+    shape, so every executor downstream is direction-agnostic."""
+    row_nnz = L.indptr[rows + 1] - L.indptr[rows] - 1  # off-diagonal count
+    if sort_by_nnz and rows.size > 1:
+        order = np.argsort(row_nnz, kind="stable")
+        rows = rows[order]
+        row_nnz = row_nnz[order]
+    K = max(int(row_nnz.max()) if rows.size else 0, 1)
+    R = rows.size
+    cols = np.zeros((K, R), dtype=np.int32)
+    vals = np.zeros((K, R), dtype=L.dtype)
+    diag = np.empty((R,), dtype=L.dtype)
+    val_src = np.full((K, R), -1, dtype=np.int64)
+    diag_src = np.empty((R,), dtype=np.int64)
+    for r, i in enumerate(rows):
+        lo, hi = int(L.indptr[int(i)]), int(L.indptr[int(i) + 1])
+        c, v = L.indices[lo:hi], L.data[lo:hi]
+        if diag_first:
+            diag[r] = v[0]
+            diag_src[r] = lo
+            c, v = c[1:], v[1:]
+            src = np.arange(lo + 1, hi, dtype=np.int64)
+        else:
+            diag[r] = v[-1]
+            diag_src[r] = hi - 1
+            c, v = c[:-1], v[:-1]
+            src = np.arange(lo, hi - 1, dtype=np.int64)
+        k = c.size
+        cols[:k, r] = c
+        vals[:k, r] = v
+        val_src[:k, r] = src
+    return LevelSlab(rows=rows.astype(np.int32), cols=cols, vals=vals,
+                     diag=diag, val_src=val_src, diag_src=diag_src)
+
+
+def build_schedule(
+    L: CSRMatrix,
+    levels: Optional[LevelSets] = None,
+    *,
+    sort_by_nnz: bool = True,
+    bucket_pad_ratio: float = 0.0,
+    upper: bool = False,
+) -> Schedule:
+    """Pack each level into ELL slabs.
+
+    ``bucket_pad_ratio`` > 1 splits a level into several slabs so that within
+    a slab ``max_nnz <= ratio * max(min_nnz, 1)`` — the paper's "multiple
+    functions per thick level", applied to padding.  Slabs of one level stay
+    mutually independent — only level boundaries synchronize.
+
+    ``upper=True`` packs an upper-triangular matrix (diagonal stored first
+    per row) over its backward-substitution levels — the transpose-solve
+    schedule.  Pass ``L.transpose()`` plus the reverse level sets derived
+    from the forward analysis."""
+    if levels is None:
+        level = compute_upper_levels(L) if upper else None
+        levels = build_level_sets(L, level=level)
+    slabs = []
+    for rows in levels.rows:
+        if bucket_pad_ratio and bucket_pad_ratio > 1.0 and rows.size > 1:
+            nnz = L.indptr[rows + 1] - L.indptr[rows] - 1
+            order = np.argsort(nnz, kind="stable")
+            rows_sorted = rows[order]
+            nnz_sorted = nnz[order]
+            start = 0
+            while start < rows_sorted.size:
+                kmin = max(int(nnz_sorted[start]), 1)
+                end = int(np.searchsorted(
+                    nnz_sorted, kmin * bucket_pad_ratio, side="right"))
+                end = max(end, start + 1)
+                slabs.append(_pack_rows(L, np.sort(rows_sorted[start:end]),
+                                        sort_by_nnz, diag_first=upper))
+                start = end
+        else:
+            slabs.append(_pack_rows(L, rows, sort_by_nnz, diag_first=upper))
+    return Schedule(n=L.n, slabs=slabs, level_of_row=levels.level, nnz=L.nnz)
+
+
+def build_ell(M: CSRMatrix) -> EllMatrix:
+    """Whole matrix (diagonal included) as ELL, transposed (K, n), with the
+    value-source map recorded for value-only refresh."""
+    row_nnz = M.row_nnz()
+    K = max(int(row_nnz.max()), 1)
+    cols = np.zeros((K, M.n), dtype=np.int32)
+    vals = np.zeros((K, M.n), dtype=M.dtype)
+    val_src = np.full((K, M.n), -1, dtype=np.int64)
+    for i in range(M.n):
+        lo, hi = int(M.indptr[i]), int(M.indptr[i + 1])
+        k = hi - lo
+        cols[:k, i] = M.indices[lo:hi]
+        vals[:k, i] = M.data[lo:hi]
+        val_src[:k, i] = np.arange(lo, hi, dtype=np.int64)
+    return EllMatrix(cols=cols, vals=vals, val_src=val_src)
+
+
+def stack_sub_slabs(slab: LevelSlab, n: int, *, with_src: bool = False):
+    """Uniform stacked arrays for a coarsened slab's chain: every sub-slab
+    zero-padded to the widest one.
+
+    Returns ``(rows, cols, vals, diag)`` of shapes ``(d, Rmax)``,
+    ``(d, K, Rmax)``, ``(d, K, Rmax)``, ``(d, Rmax)``.  Padding rows carry
+    the sentinel id ``n`` and divide by diag 1.  ``with_src=True`` appends
+    the stacked ``(val_src, diag_src)`` refresh maps (-1 padding)."""
+    d = slab.depth
+    rmax = max(slab.sub_rows) if slab.sub_rows else slab.R
+    rows = np.full((d, rmax), n, dtype=np.int32)
+    cols = np.zeros((d, slab.K, rmax), dtype=np.int32)
+    vals = np.zeros((d, slab.K, rmax), dtype=slab.vals.dtype)
+    diag = np.ones((d, rmax), dtype=slab.diag.dtype)
+    val_src = np.full((d, slab.K, rmax), -1, dtype=np.int64)
+    diag_src = np.full((d, rmax), -1, dtype=np.int64)
+    for t, sub in enumerate(slab.sub_slabs()):
+        rows[t, : sub.R] = sub.rows
+        cols[t, :, : sub.R] = sub.cols
+        vals[t, :, : sub.R] = sub.vals
+        diag[t, : sub.R] = sub.diag
+        if with_src and sub.val_src is not None:
+            val_src[t, :, : sub.R] = sub.val_src
+            diag_src[t, : sub.R] = sub.diag_src
+    if with_src:
+        return rows, cols, vals, diag, val_src, diag_src
+    return rows, cols, vals, diag

@@ -1,0 +1,148 @@
+"""Fused level-order layout and the one-launch solve
+(``strategy="pallas_fused"``).
+
+:func:`build_layout` packs a :class:`Schedule` into the level-order permuted
+ELL layout with chunk-aligned wavefront ``spans`` (array for array the JAX
+package's fused layout).  :func:`fused_solve` runs the whole solve: the
+one-block CUDA kernel for tensors on the card, the plain chunk walk for
+tensors on the CPU.
+
+Direction-agnostic: backward (transpose) schedules permute rows by reverse
+level order, so every dependency position still precedes its consumer.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ...core.codegen import Schedule
+from ...core.packed import gather_src
+from ..backend import resolve_device
+from . import cuda
+from .ref import fused_solve_ref
+
+__all__ = ["FusedLayout", "build_layout", "fused_solve", "make_packed_solver"]
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedLayout:
+    """Level-order permuted ELL layout with chunk-aligned level boundaries.
+
+    ``perm_rows[p]`` = original row at position p (pad -> n).
+    ``pos[i]``       = position of original row i.
+    ``cols``         (K, n_pad) dependency *positions*.
+    ``val_src``/``diag_src`` map packed values back to the source matrix's
+    ``data`` indices (-1 padding) — the value-only refresh maps.
+    ``spans``        chunk-aligned ``(offset, padded_rows)`` of each
+                     wavefront — the barrier boundaries of the kernel's walk.
+    """
+
+    n: int
+    n_pad: int
+    chunk: int
+    K: int
+    perm_rows: np.ndarray
+    pos: np.ndarray
+    cols: np.ndarray
+    vals: np.ndarray
+    diag: np.ndarray
+    val_src: Optional[np.ndarray] = None
+    diag_src: Optional[np.ndarray] = None
+    spans: tuple = ()
+
+    @property
+    def padded_flops(self) -> int:
+        return 2 * self.K * self.n_pad + self.n_pad
+
+
+def build_layout(schedule: Schedule, chunk: int = 512) -> FusedLayout:
+    n = schedule.n
+    # A coarsened slab's sub-slabs are NOT mutually independent, so every
+    # wavefront keeps its own chunk-aligned span — chains expand back to
+    # their sub-slabs.
+    slabs = [sub for slab in schedule.slabs for sub in slab.sub_slabs()]
+    K = max(s.K for s in slabs)
+    spans = []
+    off = 0
+    for slab in slabs:
+        r_pad = int(np.ceil(slab.R / chunk) * chunk)
+        spans.append((off, r_pad))
+        off += r_pad
+    n_pad = off
+    perm_rows = np.full((n_pad,), n, dtype=np.int32)
+    pos = np.zeros((n + 1,), dtype=np.int64)
+    for (o, _), slab in zip(spans, slabs):
+        perm_rows[o : o + slab.R] = slab.rows
+        pos[slab.rows] = np.arange(o, o + slab.R)
+    pos[n] = n_pad - 1  # scratch row maps to the last pad position
+
+    val_dtype = slabs[0].vals.dtype
+    cols = np.zeros((K, n_pad), dtype=np.int32)
+    vals = np.zeros((K, n_pad), dtype=val_dtype)
+    diag = np.ones((n_pad,), dtype=val_dtype)
+    val_src = np.full((K, n_pad), -1, dtype=np.int64)
+    diag_src = np.full((n_pad,), -1, dtype=np.int64)
+    for (o, _), slab in zip(spans, slabs):
+        k = slab.K
+        cols[:k, o : o + slab.R] = pos[slab.cols]
+        vals[:k, o : o + slab.R] = slab.vals
+        diag[o : o + slab.R] = slab.diag
+        if slab.val_src is not None:
+            val_src[:k, o : o + slab.R] = slab.val_src
+            diag_src[o : o + slab.R] = slab.diag_src
+    return FusedLayout(
+        n=n, n_pad=n_pad, chunk=chunk, K=K,
+        perm_rows=perm_rows, pos=pos, cols=cols, vals=vals, diag=diag,
+        val_src=val_src, diag_src=diag_src,
+        spans=tuple((int(o), int(rp)) for o, rp in spans),
+    )
+
+
+def fused_solve(bl_perm, cols, vals, diag, *, chunk: int, spans):
+    """The whole permuted solve ``x̂``: the CUDA kernel for tensors on the
+    card (walking ``spans``, an int32 ``(S, 2)`` tensor), the plain chunk
+    walk for tensors on the CPU."""
+    if bl_perm.is_cuda:
+        return cuda.fused_solve(bl_perm, cols, vals, diag, spans)
+    if bl_perm.device.type == "cpu":
+        return fused_solve_ref(bl_perm, cols, vals, diag, chunk=chunk)
+    raise ValueError(f"no fused kernel for device {bl_perm.device}")
+
+
+def make_packed_solver(schedule: Schedule, *, device="cuda", chunk: int = 512):
+    """Returns ``(solve(b, values), values0, repack, layout)``.
+
+    ``values0`` are the packed ``(vals (K, n_pad), diag (n_pad,))`` tensors
+    on ``device``; ``repack(data)`` re-packs new matrix data of the same
+    pattern as numpy arrays of the same shapes."""
+    dev = resolve_device(device)
+    lay = build_layout(schedule, chunk)
+    n = lay.n
+    # A CUDA gather does not clip: every column position must lie in x̂.
+    if int(lay.cols.max()) >= lay.n_pad:
+        raise RuntimeError("fused column position outside x̂")
+    cols_np = lay.cols if dev.type == "cuda" else lay.cols.astype(np.int64)
+    cols = torch.from_numpy(cols_np).to(dev)
+    perm_rows = torch.from_numpy(lay.perm_rows.astype(np.int64)).to(dev)
+    pos = torch.from_numpy(lay.pos[:n]).to(dev)
+    spans = torch.tensor(lay.spans, dtype=torch.int32, device=dev)
+    values0 = (torch.from_numpy(lay.vals).to(dev),
+               torch.from_numpy(lay.diag).to(dev))
+
+    def repack(data):
+        return (gather_src(data, lay.val_src, 0.0, lay.vals.dtype),
+                gather_src(data, lay.diag_src, 1.0, lay.diag.dtype))
+
+    def solve(b: torch.Tensor, values) -> torch.Tensor:
+        vals, diag = values
+        dt = b.dtype
+        b_ext = torch.cat([b, b.new_zeros((1,) + tuple(b.shape[1:]))])
+        bl_perm = b_ext.index_select(0, perm_rows)  # pad rows -> b_ext[n] = 0
+        xp = fused_solve(bl_perm, cols, vals.to(dt), diag.to(dt),
+                         chunk=lay.chunk, spans=spans)
+        return xp.index_select(0, pos)
+
+    return solve, values0, repack, lay

@@ -1,0 +1,33 @@
+"""Plain torch versions of the level kernel: what the CUDA kernel computes,
+in ordinary tensor ops.  The wrapper in :mod:`.ops` runs them for tensors on
+the CPU; on the card they are the yardstick the kernel is held against."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["level_solve_ref", "level_walk_ref"]
+
+
+def level_solve_ref(x_pad, bl, cols, vals, diag):
+    """xl[r] = (bl[r] - sum_k vals[k,r] * x[cols[k,r]]) / diag[r]
+
+    Handles both single-RHS (x_pad (n_pad,)) and batched (x_pad (n_pad, m))
+    layouts, mirroring the kernel pair."""
+    if x_pad.dim() == 2:
+        s = (vals[..., None] * x_pad[cols]).sum(0)
+        return (bl - s) / diag[:, None]
+    s = (vals * x_pad[cols]).sum(0)
+    return (bl - s) / diag
+
+
+def level_walk_ref(x, bhat, cols, vals, diag, steps: np.ndarray) -> None:
+    """A step table (:func:`repro_torch.core.packed.segment_steps`) run with
+    :func:`level_solve_ref`, in place into ``x``: step
+    ``(o, K, R_pad, val_off, diag_off)`` writes ``x[o : o + R_pad]`` — what
+    :func:`repro_torch.kernels.sptrsv_level.cuda.level_walk` does on the
+    card."""
+    for o, K, Rp, vo, do in steps.tolist():
+        x[o: o + Rp] = level_solve_ref(
+            x, bhat[o: o + Rp], cols[vo: vo + K * Rp].view(K, Rp),
+            vals[vo: vo + K * Rp].view(K, Rp), diag[do: do + Rp])

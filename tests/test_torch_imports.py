@@ -1,0 +1,45 @@
+"""The port stands alone: ``repro_torch`` imports neither JAX nor the JAX
+package, neither at run time nor anywhere in its sources."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.MULTILINE)
+
+CHECK = (
+    "import repro_torch, repro_torch.core, repro_torch.sparse, "
+    "repro_torch.kernels.build, repro_torch.kernels.sptrsv_level.ops, "
+    "repro_torch.kernels.sptrsv_fused.ops, sys; "
+    "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
+    "or m.startswith(('jax.', 'repro.'))]; "
+    "assert not bad, bad"
+)
+
+
+def test_import_pulls_in_no_jax_and_no_repro():
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", CHECK], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(PKG)))
+def test_sources_do_not_import_jax_or_repro(path):
+    hits = FORBIDDEN.findall(path.read_text())
+    assert not hits, f"{path} imports {hits}"
+
+
+def test_scan_catches_forbidden_imports():
+    for line in ("import jax", "from jax import numpy", "import repro",
+                 "from repro.core import SpTRSV", "  import jax.numpy as jnp"):
+        assert FORBIDDEN.search(line), line
+    for line in ("import repro_torch", "from repro_torch.core import x",
+                 "import jaxlib_free", "# from repro import nothing"):
+        assert not FORBIDDEN.search(line), line
