@@ -18,7 +18,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    executor, a small case against a dense solve, then ``refresh`` and solve
    again.  Launch counts are zeroed just before and read just after; every
    kernel must have launched;
-4. CUDA-event times per solve and per kernel, beside each kernel's bound.
+4. CUDA-event times per solve and per kernel (median and range of three
+   batches; a solve slower than the batch budget is timed once), beside
+   each kernel's bound and its launches per solve.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
@@ -74,24 +76,38 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, budget_ms: float = 300.0, max_reps: int = 20) -> float:
-    """Mean ms per call between CUDA events around repeated calls (host
-    launch gaps included — what a caller of the solve waits).  One warm-up
-    call sizes the repetitions to about ``budget_ms``."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    warm_ms = (time.perf_counter() - t0) * 1e3
-    reps = int(max(1, min(max_reps, budget_ms // max(warm_ms, 1e-3))))
+def time_ms(torch, fn, *, warm: bool = True, budget_ms: float = 200.0,
+            max_reps: int = 20, samples: int = 3) -> tuple[float, float, float]:
+    """``(median, min, max)`` ms per call over ``samples`` batches of repeated
+    calls between CUDA events (host launch gaps included — what a caller of
+    the solve waits).  A first timed call, after an untimed warm-up unless
+    ``warm`` is false (the caller has already run ``fn``), sizes each batch
+    to about ``budget_ms``; a call that alone exceeds the budget is timed
+    once."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+
+    def batch(reps: int) -> float:
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    if warm:
         fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    torch.cuda.synchronize()
+    first = batch(1)
+    if first >= budget_ms:
+        return first, first, first
+    reps = int(max(1, min(max_reps, budget_ms // max(first, 1e-3))))
+    per = sorted(batch(reps) for _ in range(samples))
+    return per[len(per) // 2], per[0], per[-1]
+
+
+def fmt_ms(t: tuple[float, float, float]) -> str:
+    return f"{t[0]:.4f} ms [{t[1]:.4f}-{t[2]:.4f}]"
 
 
 def device_busy(torch, fn, reps: int = 5) -> str:
@@ -134,12 +150,12 @@ def residual(A, x: np.ndarray, b: np.ndarray) -> float:
 
 def solve_bound_ms(L, m: int, dtype: str) -> tuple[float, str]:
     """Least time for one solve of ``m`` RHS: each input read once, each
-    output written once (off-diagonal int32 index + value, diagonal, b, x
-    gathered, x written), against the FLOPs (mul+sub per off-diagonal, one
-    divide per row)."""
+    output written once (off-diagonal int32 index + value, diagonal and b
+    read, x written; the gathers of x hit the L2), against the FLOPs
+    (mul+sub per off-diagonal, one divide per row)."""
     s = 8 if dtype == "float64" else 4
     off = L.nnz - L.n
-    nbytes = off * (4 + s) + L.n * s + 3 * L.n * m * s
+    nbytes = off * (4 + s) + L.n * s + 2 * L.n * m * s
     flops = m * (2 * off + L.n)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
@@ -343,15 +359,18 @@ def main() -> int:
     for name in KERNELS:
         check(main_launches[name] > 0, f"{name} never launched on the main path")
 
-    # launches per single solve, per strategy
-    per_solve = {}
-    b1 = torch.from_numpy(rng.standard_normal(L64.n)).to(dev)
-    for tag in ("pallas_level", "pallas_level+coarsen", "pallas_fused"):
-        level_cuda.reset_launches()
-        fused_cuda.reset_launches()
-        solvers[tag, "float64"][0].solve(b1)
-        per_solve[tag] = sum(level_cuda.launches.values()) + sum(
-            fused_cuda.launches.values())
+    # launches of each kernel in one forward f64 solve, per strategy
+    per_solve = {name: {} for name in KERNELS}
+    for m in WIDTHS:
+        bm = torch.from_numpy(rng.standard_normal(
+            (L64.n,) if m == 1 else (L64.n, m))).to(dev)
+        for tag in ("pallas_level", "pallas_level+coarsen", "pallas_fused"):
+            level_cuda.reset_launches()
+            fused_cuda.reset_launches()
+            solvers[tag, "float64"][0].solve(bm)
+            for name, n in {**level_cuda.launches, **fused_cuda.launches}.items():
+                if n:
+                    per_solve[name][tag] = n
     print(f"launches per solve: {json.dumps(per_solve)}")
 
     # -- phase 4: times -----------------------------------------------------
@@ -361,9 +380,10 @@ def main() -> int:
                 (L64.n,) if m == 1 else (L64.n, m))).to(dev, getattr(torch, dt))
             for tag in variants:
                 for s in solvers[tag, dt]:
-                    ms = time_ms(torch, lambda: s.solve(b))
+                    # phase 3 ran every one of these solves already
+                    ms = time_ms(torch, lambda: s.solve(b), warm=False)
                     print(f"phase 4: solve {tag:21s} {dt} m={m:2d} transpose="
-                          f"{int(s.transpose)}: {ms:.4f} ms")
+                          f"{int(s.transpose)}: {fmt_ms(ms)}")
 
     b1 = torch.from_numpy(rng.standard_normal(L64.n)).to(dev)
     for tag in ("pallas_level", "pallas_fused", "levelset"):
@@ -396,7 +416,7 @@ def main() -> int:
                        ).index_select(0, perm_rows)
         try:
             lib_ms = time_ms(torch, lambda: torch.triangular_solve(
-                b, A_csr, upper=False))
+                b, A_csr, upper=False))[0]
         except (RuntimeError, NotImplementedError, TypeError) as err:
             print(f"library: torch.triangular_solve on sparse CSR unavailable: {err}")
             lib_ms = None
@@ -404,27 +424,26 @@ def main() -> int:
         timings = {
             "sptrsv_level" if m == 1 else "sptrsv_level_batched": (
                 lambda: level_cuda.level_walk(x, bhat, cols, vals0[0], vals0[1], steps),
-                lambda: level_walk_ref(x, bhat, cols, vals0[0], vals0[1], steps),
-                per_solve["pallas_level"]),
+                lambda: level_walk_ref(x, bhat, cols, vals0[0], vals0[1], steps)),
             "sptrsv_fused" if m == 1 else "sptrsv_fused_batched": (
                 lambda: fused_cuda.fused_solve(bl, fcols, fvals, fdiag, spans),
-                lambda: fused_solve_ref(bl, fcols, fvals, fdiag, chunk=flay.chunk),
-                1),
+                lambda: fused_solve_ref(bl, fcols, fvals, fdiag, chunk=flay.chunk)),
         }
-        for name, (kern, plain, per) in timings.items():
+        for name, (kern, plain) in timings.items():
             ms = time_ms(torch, kern)
             plain_ms = time_ms(torch, plain)
-            print(f"phase 4: kernel {name:22s} f64 m={m:2d}: {ms:.4f} ms per "
-                  f"solve ({per} launches), plain {plain_ms:.4f} ms, bound "
-                  f"{bound:.6f} ms ({bound_by}), library "
+            print(f"phase 4: kernel {name:22s} f64 m={m:2d}: {fmt_ms(ms)} per "
+                  f"solve ({json.dumps(per_solve[name])} launches), plain "
+                  f"{fmt_ms(plain_ms)}, bound {bound:.6f} ms ({bound_by}), library "
                   f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
             source, replaces = KERNELS[name]
             report.append({
                 "name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": main_launches[name],
-                "max_abs_err": kernel_err[name, dt], "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-                "library_ms": lib_ms})
+                "launches_per_solve": per_solve[name],
+                "max_abs_err": kernel_err[name, dt], "ms": ms[0],
+                "ms_min_max": [ms[1], ms[2]], "plain_ms": plain_ms[0],
+                "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms})
     report.sort(key=lambda r: list(KERNELS).index(r["name"]))
 
     print(f"card: {card}")

@@ -330,9 +330,9 @@ class SpTRSV:
             "n": self.n,
             "nnz": self.analysis.nnz,
             "segments": self.schedule.num_segments,
-            "supernode_count": self.analysis.supernode_count,
-            "mean_block_size": self.analysis.mean_block_size,
-            "dense_block_fraction": self.analysis.dense_block_fraction,
+            "supernode_count": None,
+            "mean_block_size": None,
+            "dense_block_fraction": None,
             "permutation_applied": bool(ps and ps.permutation_applied),
             "packed_value_bytes": ps.value_bytes,
             "packed_index_bytes": ps.index_bytes,
