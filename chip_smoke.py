@@ -1,26 +1,41 @@
 #!/usr/bin/env python3
 """Build and drive the PyTorch/CUDA port of SpTRSV (``src/repro_torch``) on
-one NVIDIA GPU, at the size of the paper's lung2 (``lung2_like(scale=1.0)``:
-110,258 rows, 493 levels).
+one NVIDIA GPU: the level-scheduled and fused solves and the equation
+rewriting at the size of the paper's lung2 (``lung2_like(scale=1.0)``:
+110,258 rows, 493 levels), and the blocked solve on a dense band of the
+same row count (``banded_lower(110592, bandwidth=24, fill=1.0)``, the JAX
+blocked benchmark's band).
 
     python3 chip_smoke.py
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. print the card's name and power limit; build the CUDA kernels from
-   ``src/repro_torch/kernels/csrc`` with nvcc (timed);
-2. hold each of the four kernels against its plain torch version on the
-   same CUDA tensors at the main path's shapes (f32/f64, m in {1, 32});
-3. the main path: ``SpTRSV.build_pair`` for ``pallas_level``,
-   ``pallas_level`` + coarsening and ``pallas_fused`` in f32 and f64, one RHS
-   and a batch of 32, forward and transpose; componentwise residuals
-   against the factor, agreement with the plain torch ``levelset``
-   executor, a small case against a dense solve, then ``refresh`` and solve
-   again.  Launch counts are zeroed just before and read just after; every
-   kernel must have launched;
+   ``src/repro_torch/kernels/csrc`` with nvcc, one process per source;
+2. hold each of the eight kernel entry points against its plain torch
+   version on the same CUDA tensors at the paths' shapes (f32/f64, m in
+   {1, 32});
+3. the paths, each with the launch counts zeroed just before and read just
+   after, every kernel of the path launched:
+   a. ``SpTRSV.build_pair`` for ``pallas_level``, ``pallas_level`` +
+      coarsening and ``pallas_fused`` in f32 and f64, one RHS and a batch
+      of 32, forward and transpose (the transpose ``pallas_fused`` batch
+      left out here and in b: ~11 s per solve): componentwise backward
+      error against the factor, agreement with the plain torch
+      ``levelset`` executor, then ``refresh`` and solve again;
+   b. the same strategies and ``levelset`` with
+      ``rewrite=RewriteConfig()``: backward error against the original
+      factor, agreement with the unrewritten ``levelset`` solve, and
+      ``refresh`` (which replays the rewrite plan) with the value buffers
+      left in place;
+   c. ``strategy="blocked"`` on the band: residual, agreement with
+      ``scipy.sparse.linalg.spsolve_triangular`` in f64 on the host, and
+      ``refresh``;
+   small matrices of every path are held against a dense solve first;
 4. CUDA-event times per solve and per kernel (median and range of three
    batches; a solve slower than the batch budget is timed once), beside
-   each kernel's bound and its launches per solve.
+   each kernel's bound, its plain version and a library call, and the
+   launches of each kernel in one forward f64 solve.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
@@ -38,11 +53,26 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
+# Paths' sizes: the paper's lung2, and the JAX blocked benchmark's band
+# (benchmarks/blocked.py: bandwidth 24, fill 1.0, max_block 64) at lung2's
+# row count rounded to whole 64-row supernodes.
+LUNG2_SCALE = 1.0
+BAND_N, BAND_WIDTH = 110_592, 24
+SMALL_BAND_N = 600
+
 # max |kernel - plain| / max |plain| on the same inputs: nvcc contracts the
-# multiply-subtract to FMA, so the two may differ by rounding.
+# multiply-add to FMA, so the two may differ by rounding.
 KERNEL_TOL = {"float64": 1e-12, "float32": 1e-5}
 # componentwise backward error max |b - A x| / (|A| |x| + |b|) of a solve
 RESIDUAL_TOL = {"float64": 1e-12, "float32": 1e-5}
+# max |x_rewritten - x| / max |x| against the unrewritten levelset solve:
+# the rewrite changes the arithmetic.  f64: rtol 1e-8 of the JAX package's
+# tests/test_core_rewrite.py:39; f32: the f32 dense-solve tolerance of the
+# port's CPU tests (tests/test_torch_solver.py).
+REWRITE_AGREE_TOL = {"float64": 1e-8, "float32": 1e-4}
+# blocked against scipy's f64 solve: rtol 1e-12 of the JAX package's
+# tests/test_blocked.py:166 (f64); f32 as above
+BLOCKED_AGREE_TOL = {"float64": 1e-12, "float32": 1e-4}
 # H100 SXM data sheet: HBM rate; vector (non-tensor-core) FP rates
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
@@ -57,7 +87,20 @@ KERNELS = {
                      "src/repro/kernels/sptrsv_fused/lowering_tpu.py:76"),
     "sptrsv_fused_batched": ("src/repro_torch/kernels/csrc/sptrsv_fused.cu",
                              "src/repro/kernels/sptrsv_fused/lowering_tpu.py:137"),
+    "spmv_ell": ("src/repro_torch/kernels/csrc/spmv_ell.cu",
+                 "src/repro/kernels/spmv_ell/lowering_tpu.py:34"),
+    "spmv_ell_batched": ("src/repro_torch/kernels/csrc/spmv_ell.cu",
+                         "src/repro/kernels/spmv_ell/lowering_tpu.py:34"),
+    "trsm_block_apply": ("src/repro_torch/kernels/csrc/trsm_block.cu",
+                         "src/repro/kernels/trsm_block/lowering_tpu.py:41"),
+    "trsm_block_apply_batched": ("src/repro_torch/kernels/csrc/trsm_block.cu",
+                                 "src/repro/kernels/trsm_block/lowering_tpu.py:41"),
 }
+LEVEL_TAGS = ("pallas_level", "pallas_level+coarsen", "pallas_fused")
+VARIANTS = {"pallas_level": dict(strategy="pallas_level"),
+            "pallas_level+coarsen": dict(strategy="pallas_level", coarsen=True),
+            "pallas_fused": dict(strategy="pallas_fused"),
+            "levelset": dict(strategy="levelset")}
 
 
 class SmokeFailure(RuntimeError):
@@ -148,6 +191,15 @@ def residual(A, x: np.ndarray, b: np.ndarray) -> float:
     return float((r / np.maximum(scale, 1e-300)).max())
 
 
+def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
+    """The larger of bytes over the HBM rate and FLOPs over the vector FP
+    rate, and which of the two it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def solve_bound_ms(L, m: int, dtype: str) -> tuple[float, str]:
     """Least time for one solve of ``m`` RHS: each input read once, each
     output written once (off-diagonal int32 index + value, diagonal and b
@@ -155,12 +207,23 @@ def solve_bound_ms(L, m: int, dtype: str) -> tuple[float, str]:
     (mul+sub per off-diagonal, one divide per row)."""
     s = 8 if dtype == "float64" else 4
     off = L.nnz - L.n
-    nbytes = off * (4 + s) + L.n * s + 2 * L.n * m * s
-    flops = m * (2 * off + L.n)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    return bound_ms(off * (4 + s) + L.n * s + 2 * L.n * m * s,
+                    m * (2 * off + L.n), dtype)
+
+
+def spmv_bound_ms(E, m: int, dtype: str) -> tuple[float, str]:
+    """``y = E v``: E's true nonzeros (int32 index + value) and ``v`` read
+    once, ``y`` written once; one multiply-add per nonzero and column."""
+    s = 8 if dtype == "float64" else 4
+    return bound_ms(E.nnz * (4 + s) + 2 * E.n * m * s, 2 * E.nnz * m, dtype)
+
+
+def block_apply_bound_ms(shapes, m: int, dtype: str) -> tuple[float, str]:
+    """Block applies of ``(B, T)`` shapes: every ``Dinv`` block and ``rhs``
+    read once, ``out`` written once; ``2 T^2 m`` FLOPs per block."""
+    s = 8 if dtype == "float64" else 4
+    nbytes = sum(B * T * T * s + 2 * B * T * m * s for B, T in shapes)
+    return bound_ms(nbytes, sum(2 * B * T * T * m for B, T in shapes), dtype)
 
 
 def main() -> int:
@@ -176,18 +239,41 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     import scipy.sparse as sp
+    from scipy.sparse.linalg import spsolve_triangular
 
-    from repro_torch.core import SpTRSV
+    from repro_torch.core import RewriteConfig, SpTRSV
     from repro_torch.core.coarsen import coarsen_schedule
-    from repro_torch.core.packed import permute_rhs, segment_steps
+    from repro_torch.core.codegen import build_ell
+    from repro_torch.core.packed import (build_packed_blocked_layout,
+                                         pack_blocked_values, permute_rhs,
+                                         segment_steps)
     from repro_torch.kernels import build
+    from repro_torch.kernels.spmv_ell import cuda as spmv_cuda
+    from repro_torch.kernels.spmv_ell.ops import device_cols
+    from repro_torch.kernels.spmv_ell.ref import spmv_ref
     from repro_torch.kernels.sptrsv_fused import cuda as fused_cuda
     from repro_torch.kernels.sptrsv_fused.ops import build_layout
     from repro_torch.kernels.sptrsv_fused.ref import fused_solve_ref
     from repro_torch.kernels.sptrsv_level import cuda as level_cuda
     from repro_torch.kernels.sptrsv_level.ops import make_packed_solver
     from repro_torch.kernels.sptrsv_level.ref import level_walk_ref
-    from repro_torch.sparse import lung2_like, refresh_values
+    from repro_torch.kernels.trsm_block import cuda as trsm_cuda
+    from repro_torch.kernels.trsm_block.ref import block_apply_ref
+    from repro_torch.sparse import banded_lower, lung2_like, refresh_values
+
+    counters = (level_cuda, fused_cuda, spmv_cuda, trsm_cuda)
+
+    def reset_counts() -> None:
+        for mod in counters:
+            mod.reset_launches()
+
+    def counts() -> dict:
+        return {k: v for mod in counters for k, v in mod.launches.items()}
+
+    def scipy_csr(M, data=None):
+        A = sp.csr_matrix((M.data if data is None else data, M.indices,
+                           M.indptr), shape=M.shape)
+        return {False: A, True: A.T.tocsr()}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -196,6 +282,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
+    t_start = time.perf_counter()
 
     # -- phase 1: build -------------------------------------------------
     t0 = time.perf_counter()
@@ -209,21 +296,31 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     t0 = time.perf_counter()
-    L64 = lung2_like(scale=1.0, seed=0)
+    L64 = lung2_like(scale=LUNG2_SCALE, seed=0)
     mats = {"float64": L64, "float32": L64.astype(np.float32)}
-    print(f"lung2_like(scale=1.0): n={L64.n} nnz={L64.nnz} "
-          f"(generated in {time.perf_counter() - t0:.1f} s)")
+    band64 = banded_lower(BAND_N, bandwidth=BAND_WIDTH, fill=1.0, seed=0)
+    bands = {"float64": band64, "float32": band64.astype(np.float32)}
+    print(f"lung2_like(scale={LUNG2_SCALE}): n={L64.n} nnz={L64.nnz}; "
+          f"banded_lower({BAND_N}, bandwidth={BAND_WIDTH}, fill=1.0): "
+          f"nnz={band64.nnz} (generated in {time.perf_counter() - t0:.1f} s)")
 
-    # Solvers of the main path, built once: (strategy, coarsen) x dtype.
+    # Solvers of the paths, built once per dtype.
     t0 = time.perf_counter()
-    variants = {"pallas_level": dict(strategy="pallas_level"),
-                "pallas_level+coarsen": dict(strategy="pallas_level", coarsen=True),
-                "pallas_fused": dict(strategy="pallas_fused"),
-                "levelset": dict(strategy="levelset")}
-    solvers = {}
+    solvers, rw_solvers, blk_solvers = {}, {}, {}
     for dt, L in mats.items():
-        for tag, kw in variants.items():
+        for tag, kw in VARIANTS.items():
             solvers[tag, dt] = SpTRSV.build_pair(L, device="cuda", **kw)
+    t_lvl = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for dt, L in mats.items():
+        for tag, kw in VARIANTS.items():
+            rw_solvers[tag, dt] = SpTRSV.build_pair(
+                L, device="cuda", rewrite=RewriteConfig(), **kw)
+    t_rw = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for dt, B in bands.items():
+        blk_solvers[dt] = SpTRSV.build_pair(B, device="cuda", strategy="blocked")
+    t_blk = time.perf_counter() - t0
     fwd = solvers["pallas_level", "float64"][0]
     for s in solvers["pallas_level", "float64"]:
         ks = [sl.K for sl in s.schedule.slabs]
@@ -231,15 +328,44 @@ def main() -> int:
               f"levels with K > 64: {sum(k > 64 for k in ks)}, padded FLOPs "
               f"{s.schedule.padded_flops()}; fused n_pad "
               f"{solvers['pallas_fused', 'float64'][int(s.transpose)].stats()['n_pad']}")
-    print(f"built {len(solvers)} solver pairs in {time.perf_counter() - t0:.1f} s; "
+    print(f"built {len(solvers)} solver pairs in {t_lvl:.1f} s; "
           f"levels={fwd.analysis.num_levels} segments: "
           + ", ".join(f"{t}={solvers[t, 'float64'][0].stats()['segments']}"
-                      for t in variants))
+                      for t in VARIANTS))
+    print(f"built {len(rw_solvers)} rewritten solver pairs in {t_rw:.1f} s")
+    for s in rw_solvers["pallas_level", "float64"]:
+        rs = s.rewrite_result
+        print(f"rewrite transpose={int(s.transpose)}: {rs.stats.summary()}; "
+              f"E nnz {rs.E.nnz} (off-diagonal {rs.stats.e_nnz_offdiag}), "
+              f"E ELL K {build_ell(rs.E).K}; segments: "
+              + ", ".join(f"{t}={rw_solvers[t, 'float64'][int(s.transpose)].stats()['segments']}"
+                          for t in VARIANTS)
+              + f"; fused ELL K {max(sl.K for sl in rw_solvers['pallas_fused', 'float64'][int(s.transpose)].schedule.slabs)}")
+    for s in blk_solvers["float64"]:
+        st = s.stats()
+        print(f"blocked transpose={int(s.transpose)}: {st['segments']} segments, "
+              f"{st['supernode_count']} supernodes, mean block "
+              f"{st['mean_block_size']:.1f}, panel K max "
+              f"{max(sl.K for sl in s.block_schedule.slabs)} "
+              f"(built both dtypes in {t_blk:.1f} s)")
 
     # -- phase 2: each kernel against its plain version -------------------
     rng = np.random.default_rng(0)
     kernel_err = {}
-    sched64 = fwd.schedule
+
+    def record(name, dt, got, want, what):
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        check(torch.isfinite(got).all().item(), f"{name} {dt} {what}: non-finite")
+        check(err <= KERNEL_TOL[dt], f"{name} {dt} {what}: rel err {err:.3e}")
+        kernel_err[name, dt] = max(kernel_err.get((name, dt), 0.0),
+                                   float((got - want).abs().max()))
+        print(f"phase 2: {name:24s} {dt} {what}: max rel err {err:.3e} "
+              f"(tol {KERNEL_TOL[dt]:g})")
+
+    def randn(shape, tdt):
+        return torch.from_numpy(rng.standard_normal(shape)).to(dev, tdt)
+
     for dt, L in mats.items():
         tdt = getattr(torch, dt)
         sched = solvers["pallas_level", dt][0].schedule
@@ -258,20 +384,12 @@ def main() -> int:
         n_x = -(-lay.n_pad // 128) * 128
         for m in WIDTHS:
             shape = (n_x,) if m == 1 else (n_x, m)
-            x0 = torch.from_numpy(rng.standard_normal(shape)).to(dev, tdt)
-            bhat = torch.from_numpy(rng.standard_normal(shape)).to(dev, tdt)
+            x0, bhat = randn(shape, tdt), randn(shape, tdt)
             xk, xr = x0.clone(), x0.clone()
             level_cuda.level_walk(xk, bhat, cols, vals0[0], vals0[1], sub)
             level_walk_ref(xr, bhat, cols, vals0[0], vals0[1], sub)
-            torch.cuda.synchronize()
-            name = "sptrsv_level" if m == 1 else "sptrsv_level_batched"
-            err = rel_err(xk, xr)
-            check(torch.isfinite(xk).all().item(), f"{name} {dt}: non-finite")
-            check(err <= KERNEL_TOL[dt], f"{name} {dt} m={m}: rel err {err:.3e}")
-            kernel_err[name, dt] = float((xk - xr).abs().max())
-            print(f"phase 2: {name:22s} {dt} m={m:2d} fat level R={fat.R} "
-                  f"+ chain depth {chain.depth}: max rel err {err:.3e} "
-                  f"(tol {KERNEL_TOL[dt]:g})")
+            record("sptrsv_level" if m == 1 else "sptrsv_level_batched", dt,
+                   xk, xr, f"m={m:2d} fat level R={fat.R} + chain depth {chain.depth}")
 
         flay = build_layout(sched)
         fcols = torch.from_numpy(flay.cols).to(dev)
@@ -279,49 +397,89 @@ def main() -> int:
         fdiag = torch.from_numpy(flay.diag).to(dev)
         spans = torch.tensor(flay.spans, dtype=torch.int32, device=dev)
         for m in WIDTHS:
-            shape = (flay.n_pad,) if m == 1 else (flay.n_pad, m)
-            bl = torch.from_numpy(rng.standard_normal(shape)).to(dev, tdt)
+            bl = randn((flay.n_pad,) if m == 1 else (flay.n_pad, m), tdt)
             xk = fused_cuda.fused_solve(bl, fcols, fvals, fdiag, spans)
             xr = fused_solve_ref(bl, fcols, fvals, fdiag, chunk=flay.chunk)
-            torch.cuda.synchronize()
-            name = "sptrsv_fused" if m == 1 else "sptrsv_fused_batched"
-            err = rel_err(xk, xr)
-            check(torch.isfinite(xk).all().item(), f"{name} {dt}: non-finite")
-            check(err <= KERNEL_TOL[dt], f"{name} {dt} m={m}: rel err {err:.3e}")
-            kernel_err[name, dt] = float((xk - xr).abs().max())
-            print(f"phase 2: {name:22s} {dt} m={m:2d} whole layout "
-                  f"n_pad={flay.n_pad} spans={len(flay.spans)}: max rel err "
-                  f"{err:.3e} (tol {KERNEL_TOL[dt]:g})")
+            record("sptrsv_fused" if m == 1 else "sptrsv_fused_batched", dt,
+                   xk, xr, f"m={m:2d} whole layout n_pad={flay.n_pad} "
+                   f"spans={len(flay.spans)}")
 
-    # -- phase 3: the main path -------------------------------------------
+        # the SpMV on the forward rewrite's E and on one panel of the band
+        E = rw_solvers["levelset", dt][0].rewrite_result.E
+        ell = build_ell(E)
+        slabs = {"lung2 E": (device_cols(ell.cols, E.n, dev),
+                             torch.from_numpy(ell.vals).to(dev), E.n)}
+        blay = build_packed_blocked_layout(blk_solvers[dt][0].block_schedule)
+        bseg = max(blay.segments[:4], key=lambda s: s.K)
+        span = slice(bseg.val_off, bseg.val_off + bseg.K * bseg.B * bseg.T)
+        slabs["band panel"] = (
+            device_cols(blay.cols_flat[span].reshape(bseg.K, -1), blay.n, dev),
+            torch.from_numpy(blay.vals_flat[span].reshape(bseg.K, -1)).to(dev),
+            blay.n)
+        for what, (ecols, evals, n_v) in slabs.items():
+            for m in WIDTHS:
+                v = randn((n_v,) if m == 1 else (n_v, m), tdt)
+                record("spmv_ell" if m == 1 else "spmv_ell_batched", dt,
+                       spmv_cuda.spmv(v, ecols, evals),
+                       spmv_ref(v, ecols.long(), evals),
+                       f"m={m:2d} {what} K={ecols.shape[0]} n={ecols.shape[1]}")
+
+        # the block apply on one band segment and on a synthetic batch
+        _, dinv_flat = pack_blocked_values(blay, bands[dt].data)
+        seg_dinv = torch.from_numpy(
+            dinv_flat[bseg.dinv_off: bseg.dinv_off + bseg.B * bseg.T ** 2]
+            .reshape(bseg.B, bseg.T, bseg.T)).to(dev, tdt)
+        for what, dinv in (("band segment", seg_dinv),
+                           ("synthetic", randn((512, 64, 64), tdt))):
+            B_, T_ = dinv.shape[:2]
+            for m in WIDTHS:
+                rhs = randn((B_, T_) if m == 1 else (B_, T_, m), tdt)
+                record("trsm_block_apply" if m == 1 else "trsm_block_apply_batched",
+                       dt, trsm_cuda.block_apply(dinv, rhs),
+                       block_apply_ref(dinv, rhs),
+                       f"m={m:2d} {what} B={B_} T={T_}")
+
+    # -- phase 3: the paths -----------------------------------------------
     small = lung2_like(scale=0.02, fat_levels=4, seed=3)
-    dense = small.to_dense()
-    bs = rng.standard_normal((small.n, 3))
-    for tag in ("pallas_level", "pallas_level+coarsen", "pallas_fused"):
-        f, b_ = SpTRSV.build_pair(small, device="cuda", **variants[tag])
-        for s, A in ((f, dense), (b_, dense.T)):
-            x = s.solve(torch.from_numpy(bs).to(dev)).cpu().numpy()
-            err = float(np.abs(x - np.linalg.solve(A, bs)).max())
-            check(err <= 1e-11, f"small {tag} transpose={s.transpose}: {err:.3e}")
-    print("phase 3: small lung2_like(n=%d) matches a dense solve for all "
-          "kernel strategies, both directions" % small.n)
+    small_band = banded_lower(SMALL_BAND_N, bandwidth=BAND_WIDTH, fill=1.0, seed=3)
+    for M, kws in ((small, [VARIANTS[t] for t in LEVEL_TAGS]
+                    + [dict(rewrite=RewriteConfig(), **VARIANTS[t]) for t in VARIANTS]),
+                   (small_band, [dict(strategy="blocked")])):
+        dense = M.to_dense()
+        bs = rng.standard_normal((M.n, 3))
+        for kw in kws:
+            for s, A in zip(SpTRSV.build_pair(M, device="cuda", **kw),
+                            (dense, dense.T)):
+                x = s.solve(torch.from_numpy(bs).to(dev)).cpu().numpy()
+                err = float(np.abs(x - np.linalg.solve(A, bs)).max())
+                check(err <= 1e-11, f"small {kw} transpose={s.transpose}: {err:.3e}")
+    print(f"phase 3: small lung2_like(n={small.n}) matches a dense solve for all "
+          f"kernel strategies, with and without rewriting, and the small band "
+          f"(n={small_band.n}) for blocked, both directions")
 
-    level_cuda.reset_launches()
-    fused_cuda.reset_launches()
+    path_launches = {}
+
+    # The transpose pallas_fused batch is left out of every path and timing:
+    # the lung2 transpose's ELL width of 1,975 makes it ~11 s per solve, and
+    # the transpose rewrite (2 rows of 110,258 changed) keeps that width.
+    def runs(tag, s, m):
+        return not (tag == "pallas_fused" and s.transpose and m > 1)
+
+    # 3a: the level-scheduled and fused solves
+    reset_counts()
     t0 = time.perf_counter()
     for dt, L in mats.items():
-        tdt = getattr(torch, dt)
-        A = {False: sp.csr_matrix((L.data, L.indices, L.indptr), shape=L.shape)}
-        A[True] = A[False].T.tocsr()
+        A = scipy_csr(L)
         new = refresh_values(L, seed=1)
-        A2 = {False: sp.csr_matrix((new, L.indices, L.indptr), shape=L.shape)}
-        A2[True] = A2[False].T.tocsr()
+        A2 = scipy_csr(L, new)
         for m in WIDTHS:
             b_np = rng.standard_normal((L.n,) if m == 1 else (L.n, m)).astype(dt)
             b = torch.from_numpy(b_np).to(dev)
             base = {s.transpose: s.solve(b) for s in solvers["levelset", dt]}
-            for tag in ("pallas_level", "pallas_level+coarsen", "pallas_fused"):
+            for tag in LEVEL_TAGS:
                 for s in solvers[tag, dt]:
+                    if not runs(tag, s, m):
+                        continue
                     x = s.solve(b)
                     torch.cuda.synchronize()
                     xn = x.double().cpu().numpy()
@@ -333,71 +491,212 @@ def main() -> int:
                           f"{tag} {dt} m={m} T={s.transpose}: residual {res:.3e}")
                     check(agree <= KERNEL_TOL[dt],
                           f"{tag} {dt} m={m} T={s.transpose}: vs levelset {agree:.3e}")
-                    print(f"phase 3: {tag:21s} {dt} m={m:2d} transpose="
+                    print(f"phase 3a: {tag:21s} {dt} m={m:2d} transpose="
                           f"{int(s.transpose)} residual {res:.2e} "
                           f"vs levelset {agree:.2e}")
         # refresh in place, then solve again against the new values
-        b_np = rng.standard_normal((L.n, WIDTHS[-1])).astype(dt)
-        b = torch.from_numpy(b_np).to(dev)
-        for tag in ("pallas_level", "pallas_level+coarsen", "pallas_fused"):
+        for tag in LEVEL_TAGS:
             for s in solvers[tag, dt]:
+                m = WIDTHS[-1] if runs(tag, s, WIDTHS[-1]) else 1
+                b_np = rng.standard_normal((L.n,) if m == 1 else (L.n, m)).astype(dt)
                 ptrs = [v.data_ptr() for v in s._values]
                 s.refresh(new)
                 check(ptrs == [v.data_ptr() for v in s._values],
                       f"{tag}: refresh moved a value buffer")
-                xn = s.solve(b).double().cpu().numpy()
+                xn = s.solve(torch.from_numpy(b_np).to(dev)).double().cpu().numpy()
                 res = residual(A2[s.transpose], xn, b_np.astype(np.float64))
                 check(res <= RESIDUAL_TOL[dt],
                       f"refresh {tag} {dt} T={s.transpose}: residual {res:.3e}")
-                print(f"phase 3: refresh {tag:21s} {dt} transpose="
+                print(f"phase 3a: refresh {tag:21s} {dt} m={m:2d} transpose="
                       f"{int(s.transpose)} residual {res:.2e}")
                 s.refresh(L.data)
     torch.cuda.synchronize()
-    main_launches = {**level_cuda.launches, **fused_cuda.launches}
-    print(f"phase 3: main path in {time.perf_counter() - t0:.1f} s; launches "
-          f"{json.dumps(main_launches)}")
+    path_launches["level"] = counts()
+    print(f"phase 3a: level/fused path in {time.perf_counter() - t0:.1f} s; "
+          f"launches {json.dumps(path_launches['level'])}")
+    for name in ("sptrsv_level", "sptrsv_level_batched", "sptrsv_fused",
+                 "sptrsv_fused_batched"):
+        check(path_launches["level"][name] > 0,
+              f"{name} never launched on the level/fused path")
+
+    # 3b: the rewritten solves
+    reset_counts()
+    t0 = time.perf_counter()
+    for dt, L in mats.items():
+        A = scipy_csr(L)
+        new = refresh_values(L, seed=1)
+        A2 = scipy_csr(L, new)
+        for m in WIDTHS:
+            b_np = rng.standard_normal((L.n,) if m == 1 else (L.n, m)).astype(dt)
+            b = torch.from_numpy(b_np).to(dev)
+            base = {s.transpose: s.solve(b) for s in solvers["levelset", dt]}
+            for tag in VARIANTS:
+                for s in rw_solvers[tag, dt]:
+                    if not runs(tag, s, m):
+                        continue
+                    x = s.solve(b)
+                    torch.cuda.synchronize()
+                    xn = x.double().cpu().numpy()
+                    check(x.shape == b.shape and np.isfinite(xn).all(),
+                          f"rewrite {tag} {dt} m={m}: bad output")
+                    res = residual(A[s.transpose], xn, b_np.astype(np.float64))
+                    agree = rel_err(x, base[s.transpose])
+                    check(res <= RESIDUAL_TOL[dt],
+                          f"rewrite {tag} {dt} m={m} T={s.transpose}: residual {res:.3e}")
+                    check(agree <= REWRITE_AGREE_TOL[dt],
+                          f"rewrite {tag} {dt} m={m} T={s.transpose}: vs "
+                          f"unrewritten levelset {agree:.3e}")
+                    print(f"phase 3b: rewrite {tag:21s} {dt} m={m:2d} transpose="
+                          f"{int(s.transpose)} residual {res:.2e} vs unrewritten "
+                          f"levelset {agree:.2e}")
+        for tag in VARIANTS:
+            for s in rw_solvers[tag, dt]:
+                m = WIDTHS[-1] if runs(tag, s, WIDTHS[-1]) else 1
+                b_np = rng.standard_normal((L.n,) if m == 1 else (L.n, m)).astype(dt)
+                bufs = (*s._values, s._e_values)
+                ptrs = [v.data_ptr() for v in bufs]
+                s.refresh(new)
+                check(all(a is b_ for a, b_ in zip(bufs, (*s._values, s._e_values)))
+                      and ptrs == [v.data_ptr() for v in (*s._values, s._e_values)],
+                      f"rewrite {tag}: refresh moved a value buffer")
+                xn = s.solve(torch.from_numpy(b_np).to(dev)).double().cpu().numpy()
+                res = residual(A2[s.transpose], xn, b_np.astype(np.float64))
+                check(res <= RESIDUAL_TOL[dt],
+                      f"refresh rewrite {tag} {dt} T={s.transpose}: residual {res:.3e}")
+                print(f"phase 3b: refresh rewrite {tag:21s} {dt} m={m:2d} "
+                      f"transpose={int(s.transpose)} residual {res:.2e}")
+                s.refresh(L.data)
+    torch.cuda.synchronize()
+    path_launches["rewrite"] = counts()
+    print(f"phase 3b: rewrite path in {time.perf_counter() - t0:.1f} s; "
+          f"launches {json.dumps(path_launches['rewrite'])}")
+    for name in ("sptrsv_level", "sptrsv_level_batched", "sptrsv_fused",
+                 "sptrsv_fused_batched", "spmv_ell", "spmv_ell_batched"):
+        check(path_launches["rewrite"][name] > 0,
+              f"{name} never launched on the rewrite path")
+
+    # 3c: the blocked solves on the band
+    reset_counts()
+    t0 = time.perf_counter()
+    for dt, B in bands.items():
+        A = scipy_csr(B)
+        A64 = scipy_csr(band64)
+        # refresh_values' diagonal (|N(0, 0.3)| + 1) does not dominate 24
+        # off-diagonals, and a forward solve over 110,592 rows of such
+        # values overflows; the band's own values perturbed by 10% keep it
+        # as well conditioned as the factor
+        new = (B.data * (1.0 + 0.1 * np.random.default_rng(1).standard_normal(
+            B.nnz))).astype(B.dtype)
+        A2 = scipy_csr(B, new)
+        for m in WIDTHS:
+            b_np = rng.standard_normal((B.n,) if m == 1 else (B.n, m)).astype(dt)
+            b = torch.from_numpy(b_np).to(dev)
+            for s in blk_solvers[dt]:
+                x = s.solve(b)
+                torch.cuda.synchronize()
+                xn = x.double().cpu().numpy()
+                check(x.shape == b.shape and np.isfinite(xn).all(),
+                      f"blocked {dt} m={m}: bad output")
+                res = residual(A[s.transpose], xn, b_np.astype(np.float64))
+                want = spsolve_triangular(A64[s.transpose],
+                                          b_np.astype(np.float64),
+                                          lower=not s.transpose)
+                agree = float(np.abs(xn - want).max() / np.abs(want).max())
+                check(res <= RESIDUAL_TOL[dt],
+                      f"blocked {dt} m={m} T={s.transpose}: residual {res:.3e}")
+                check(agree <= BLOCKED_AGREE_TOL[dt],
+                      f"blocked {dt} m={m} T={s.transpose}: vs scipy {agree:.3e}")
+                print(f"phase 3c: blocked {dt} m={m:2d} transpose="
+                      f"{int(s.transpose)} residual {res:.2e} vs scipy f64 "
+                      f"{agree:.2e}")
+        b_np = rng.standard_normal((B.n, WIDTHS[-1])).astype(dt)
+        for s in blk_solvers[dt]:
+            ptrs = [v.data_ptr() for v in s._values]
+            s.refresh(new)
+            check(ptrs == [v.data_ptr() for v in s._values],
+                  "blocked: refresh moved a value buffer")
+            xn = s.solve(torch.from_numpy(b_np).to(dev)).double().cpu().numpy()
+            res = residual(A2[s.transpose], xn, b_np.astype(np.float64))
+            check(res <= RESIDUAL_TOL[dt],
+                  f"refresh blocked {dt} T={s.transpose}: residual {res:.3e}")
+            print(f"phase 3c: refresh blocked {dt} transpose={int(s.transpose)} "
+                  f"residual {res:.2e}")
+            s.refresh(B.data)
+    torch.cuda.synchronize()
+    path_launches["blocked"] = counts()
+    print(f"phase 3c: blocked path in {time.perf_counter() - t0:.1f} s; "
+          f"launches {json.dumps(path_launches['blocked'])}")
+    for name in ("spmv_ell", "spmv_ell_batched", "trsm_block_apply",
+                 "trsm_block_apply_batched"):
+        check(path_launches["blocked"][name] > 0,
+              f"{name} never launched on the blocked path")
+    main_launches = {name: sum(p[name] for p in path_launches.values())
+                     for name in KERNELS}
     for name in KERNELS:
-        check(main_launches[name] > 0, f"{name} never launched on the main path")
+        check(main_launches[name] > 0, f"{name} never launched on the paths")
 
     # launches of each kernel in one forward f64 solve, per strategy
     per_solve = {name: {} for name in KERNELS}
+    cases = [(tag, solvers[tag, "float64"][0]) for tag in LEVEL_TAGS]
+    cases += [(f"rewrite:{tag}", rw_solvers[tag, "float64"][0]) for tag in VARIANTS]
+    cases += [("blocked", blk_solvers["float64"][0])]
     for m in WIDTHS:
-        bm = torch.from_numpy(rng.standard_normal(
-            (L64.n,) if m == 1 else (L64.n, m))).to(dev)
-        for tag in ("pallas_level", "pallas_level+coarsen", "pallas_fused"):
-            level_cuda.reset_launches()
-            fused_cuda.reset_launches()
-            solvers[tag, "float64"][0].solve(bm)
-            for name, n in {**level_cuda.launches, **fused_cuda.launches}.items():
+        for tag, s in cases:
+            reset_counts()
+            s.solve(torch.from_numpy(rng.standard_normal(
+                (s.n,) if m == 1 else (s.n, m))).to(dev))
+            for name, n in counts().items():
                 if n:
                     per_solve[name][tag] = n
     print(f"launches per solve: {json.dumps(per_solve)}")
+    print("launches per rewritten pallas_level forward f64 solve: "
+          f"{per_solve['sptrsv_level'].get('rewrite:pallas_level')} level + "
+          f"{per_solve['spmv_ell'].get('rewrite:pallas_level')} SpMV "
+          f"(L' segments: {rw_solvers['pallas_level', 'float64'][0].stats()['segments']})")
 
     # -- phase 4: times -----------------------------------------------------
     for dt in mats:
         for m in WIDTHS:
             b = torch.from_numpy(rng.standard_normal(
                 (L64.n,) if m == 1 else (L64.n, m))).to(dev, getattr(torch, dt))
-            for tag in variants:
+            for tag in VARIANTS:
                 for s in solvers[tag, dt]:
-                    # phase 3 ran every one of these solves already
-                    ms = time_ms(torch, lambda: s.solve(b), warm=False)
-                    print(f"phase 4: solve {tag:21s} {dt} m={m:2d} transpose="
-                          f"{int(s.transpose)}: {fmt_ms(ms)}")
+                    if runs(tag, s, m):
+                        # phase 3 ran every one of these solves already
+                        ms = time_ms(torch, lambda: s.solve(b), warm=False)
+                        print(f"phase 4: solve {tag:29s} {dt} m={m:2d} transpose="
+                              f"{int(s.transpose)}: {fmt_ms(ms)}")
+                for s in rw_solvers[tag, dt]:
+                    if runs(tag, s, m):
+                        ms = time_ms(torch, lambda: s.solve(b), warm=False)
+                        print(f"phase 4: solve rewrite:{tag:21s} {dt} m={m:2d} "
+                              f"transpose={int(s.transpose)}: {fmt_ms(ms)}")
+            bb = torch.from_numpy(rng.standard_normal(
+                (BAND_N,) if m == 1 else (BAND_N, m))).to(dev, getattr(torch, dt))
+            for s in blk_solvers[dt]:
+                ms = time_ms(torch, lambda: s.solve(bb), warm=False)
+                print(f"phase 4: solve {'blocked (band)':29s} {dt} m={m:2d} "
+                      f"transpose={int(s.transpose)}: {fmt_ms(ms)}")
 
     b1 = torch.from_numpy(rng.standard_normal(L64.n)).to(dev)
-    for tag in ("pallas_level", "pallas_fused", "levelset"):
-        s = solvers[tag, "float64"][0]
+    for tag, s in (("pallas_level", solvers["pallas_level", "float64"][0]),
+                   ("pallas_fused", solvers["pallas_fused", "float64"][0]),
+                   ("levelset", solvers["levelset", "float64"][0]),
+                   ("rewrite:pallas_level", rw_solvers["pallas_level", "float64"][0]),
+                   ("rewrite:pallas_fused", rw_solvers["pallas_fused", "float64"][0])):
         print(f"phase 4: profile {tag} f64 m=1 forward: "
               + device_busy(torch, lambda: s.solve(b1)))
+    bb1 = torch.from_numpy(rng.standard_normal(BAND_N)).to(dev)
+    print("phase 4: profile blocked (band) f64 m=1 forward: "
+          + device_busy(torch, lambda: blk_solvers["float64"][0].solve(bb1)))
 
     dt, L, tdt = "float64", L64, torch.float64
-    _, vals0, _, lay = make_packed_solver(sched64, device="cuda")
+    _, vals0, _, lay = make_packed_solver(fwd.schedule, device="cuda")
     steps = segment_steps(lay)
     cols = torch.from_numpy(lay.cols_flat).to(dev)
     perm = torch.from_numpy(lay.perm).to(dev)
     n_x = -(-lay.n_pad // 128) * 128
-    flay = build_layout(sched64)
+    flay = build_layout(fwd.schedule)
     fcols = torch.from_numpy(flay.cols).to(dev)
     fvals = torch.from_numpy(flay.vals).to(dev)
     fdiag = torch.from_numpy(flay.diag).to(dev)
@@ -406,7 +705,49 @@ def main() -> int:
     A_csr = torch.sparse_csr_tensor(
         torch.from_numpy(L.indptr), torch.from_numpy(L.indices),
         torch.from_numpy(L.data), size=L.shape, device=dev)
+    # the SpMV at the rewrite's shape: E of the forward rewrite
+    E = rw_solvers["levelset", dt][0].rewrite_result.E
+    ell = build_ell(E)
+    ecols = device_cols(ell.cols, E.n, dev)
+    ecols64 = ecols.long()
+    evals = torch.from_numpy(ell.vals).to(dev)
+    E_csr = torch.sparse_csr_tensor(
+        torch.from_numpy(E.indptr), torch.from_numpy(E.indices),
+        torch.from_numpy(E.data), size=E.shape, device=dev)
+    print(f"phase 4: E of the forward rewrite: {E.nnz} nonzeros over {E.n} "
+          f"rows; its ELL layout holds {ell.K} x {E.n} = {ell.K * E.n} slots "
+          f"({ell.K * E.n / E.nnz:.1f}x)")
+    # the block applies of one blocked forward solve, as the path issues them
+    blay = build_packed_blocked_layout(blk_solvers[dt][0].block_schedule)
+    dinv_all = torch.from_numpy(pack_blocked_values(blay, band64.data)[1]).to(dev)
+    seg_dinv = [dinv_all[s.dinv_off: s.dinv_off + s.B * s.T * s.T].view(s.B, s.T, s.T)
+                for s in blay.segments]
+    shapes = [(s.B, s.T) for s in blay.segments]
+    print(f"phase 4: the band's blocked forward solve applies {len(seg_dinv)} "
+          f"segments of (B, T) = {sorted(set(shapes))}")
     report = []
+
+    def row(name, ms, plain_ms, bound, lib_ms):
+        print(f"phase 4: kernel {name:24s} f64: {fmt_ms(ms)} per solve "
+              f"({json.dumps(per_solve[name])} launches), plain "
+              f"{fmt_ms(plain_ms)}, bound {bound[0]:.6f} ms ({bound[1]}), "
+              f"library {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+        source, replaces = KERNELS[name]
+        report.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": main_launches[name],
+            "launches_per_solve": per_solve[name],
+            "max_abs_err": kernel_err[name, dt], "ms": ms[0],
+            "ms_min_max": [ms[1], ms[2]], "plain_ms": plain_ms[0],
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib_ms})
+
+    def library(what, fn):
+        try:
+            return time_ms(torch, fn)[0]
+        except (RuntimeError, NotImplementedError, TypeError) as err:
+            print(f"library: {what} unavailable: {err}")
+            return None
+
     for m in WIDTHS:
         b = torch.from_numpy(rng.standard_normal((L.n, m))).to(dev)
         bv = b[:, 0].contiguous() if m == 1 else b
@@ -414,38 +755,51 @@ def main() -> int:
         x = torch.zeros((n_x,) + tuple(bv.shape[1:]), dtype=tdt, device=dev)
         bl = torch.cat([bv, bv.new_zeros((1,) + tuple(bv.shape[1:]))]
                        ).index_select(0, perm_rows)
-        try:
-            lib_ms = time_ms(torch, lambda: torch.triangular_solve(
-                b, A_csr, upper=False))[0]
-        except (RuntimeError, NotImplementedError, TypeError) as err:
-            print(f"library: torch.triangular_solve on sparse CSR unavailable: {err}")
-            lib_ms = None
-        bound, bound_by = solve_bound_ms(L, m, dt)
-        timings = {
-            "sptrsv_level" if m == 1 else "sptrsv_level_batched": (
-                lambda: level_cuda.level_walk(x, bhat, cols, vals0[0], vals0[1], steps),
-                lambda: level_walk_ref(x, bhat, cols, vals0[0], vals0[1], steps)),
-            "sptrsv_fused" if m == 1 else "sptrsv_fused_batched": (
-                lambda: fused_cuda.fused_solve(bl, fcols, fvals, fdiag, spans),
-                lambda: fused_solve_ref(bl, fcols, fvals, fdiag, chunk=flay.chunk)),
-        }
-        for name, (kern, plain) in timings.items():
-            ms = time_ms(torch, kern)
-            plain_ms = time_ms(torch, plain)
-            print(f"phase 4: kernel {name:22s} f64 m={m:2d}: {fmt_ms(ms)} per "
-                  f"solve ({json.dumps(per_solve[name])} launches), plain "
-                  f"{fmt_ms(plain_ms)}, bound {bound:.6f} ms ({bound_by}), library "
-                  f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
-            source, replaces = KERNELS[name]
-            report.append({
-                "name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": main_launches[name],
-                "launches_per_solve": per_solve[name],
-                "max_abs_err": kernel_err[name, dt], "ms": ms[0],
-                "ms_min_max": [ms[1], ms[2]], "plain_ms": plain_ms[0],
-                "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms})
+        lib_ms = library("torch.triangular_solve on sparse CSR",
+                         lambda: torch.triangular_solve(b, A_csr, upper=False))
+        bound = solve_bound_ms(L, m, dt)
+        row("sptrsv_level" if m == 1 else "sptrsv_level_batched",
+            time_ms(torch, lambda: level_cuda.level_walk(
+                x, bhat, cols, vals0[0], vals0[1], steps)),
+            time_ms(torch, lambda: level_walk_ref(
+                x, bhat, cols, vals0[0], vals0[1], steps)), bound, lib_ms)
+        row("sptrsv_fused" if m == 1 else "sptrsv_fused_batched",
+            time_ms(torch, lambda: fused_cuda.fused_solve(bl, fcols, fvals, fdiag, spans)),
+            time_ms(torch, lambda: fused_solve_ref(bl, fcols, fvals, fdiag,
+                                                   chunk=flay.chunk)), bound, lib_ms)
+        row("spmv_ell" if m == 1 else "spmv_ell_batched",
+            time_ms(torch, lambda: spmv_cuda.spmv(bv, ecols, evals)),
+            time_ms(torch, lambda: spmv_ref(bv, ecols64, evals)),
+            spmv_bound_ms(E, m, dt),
+            library("torch.sparse.mm on a CSR E", lambda: torch.sparse.mm(E_csr, b)))
+        rhs = [torch.from_numpy(rng.standard_normal(
+            (B_, T_) if m == 1 else (B_, T_, m))).to(dev) for B_, T_ in shapes]
+
+        def loop(fn, _rhs=rhs):
+            for d, r in zip(seg_dinv, _rhs):
+                fn(d, r)
+
+        rhs3 = [r if m > 1 else r[..., None] for r in rhs]
+        row("trsm_block_apply" if m == 1 else "trsm_block_apply_batched",
+            time_ms(torch, lambda: loop(trsm_cuda.block_apply)),
+            time_ms(torch, lambda: loop(block_apply_ref)),
+            block_apply_bound_ms(shapes, m, dt),
+            library("torch.bmm per segment", lambda: loop(torch.bmm, rhs3)))
+        # one launch over a synthetic batch, off the path: the kernel's rate
+        # when a launch holds enough work to fill the card
+        dsyn = torch.from_numpy(rng.standard_normal((512, 64, 64))).to(dev)
+        rsyn = torch.from_numpy(rng.standard_normal(
+            (512, 64) if m == 1 else (512, 64, m))).to(dev)
+        rsyn3 = rsyn if m > 1 else rsyn[..., None]
+        bnd = block_apply_bound_ms([(512, 64)], m, dt)
+        print(f"phase 4: block apply (512, 64, 64) f64 m={m:2d}: kernel "
+              f"{fmt_ms(time_ms(torch, lambda: trsm_cuda.block_apply(dsyn, rsyn)))}, "
+              f"plain {fmt_ms(time_ms(torch, lambda: block_apply_ref(dsyn, rsyn)))}, "
+              f"torch.bmm {fmt_ms(time_ms(torch, lambda: torch.bmm(dsyn, rsyn3)))}, "
+              f"bound {bnd[0]:.6f} ms ({bnd[1]})")
     report.sort(key=lambda r: list(KERNELS).index(r["name"]))
 
+    print(f"run: {time.perf_counter() - t_start:.1f} s after the card check")
     print(f"card: {card}")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

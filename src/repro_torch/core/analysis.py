@@ -13,7 +13,13 @@ from typing import Callable, Dict, Optional
 import numpy as np
 
 from .csr import CSRMatrix
-from .levels import LevelSets, build_level_sets, compute_critical_path
+from .levels import (
+    LevelSets,
+    Supernodes,
+    build_level_sets,
+    compute_critical_path,
+    detect_supernodes,
+)
 
 __all__ = ["MatrixAnalysis", "analyze"]
 
@@ -42,6 +48,12 @@ class MatrixAnalysis:
         default=None, repr=False, compare=False)
     _cp_cache: Optional[int] = dataclasses.field(
         default=None, repr=False, compare=False)
+    # supernode-detection thunk: same lazy pattern — amalgamation is
+    # O(nnz log nnz) and only report() / SpTRSV.stats() consume it
+    _sn_thunk: Optional[Callable[[], Supernodes]] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    _sn_cache: Optional[Supernodes] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     @property
     def critical_path_flops(self) -> int:
@@ -51,6 +63,29 @@ class MatrixAnalysis:
             cp = self._cp_thunk() if self._cp_thunk is not None else 0
             object.__setattr__(self, "_cp_cache", cp)
         return self._cp_cache
+
+    @property
+    def supernodes(self) -> Optional[Supernodes]:
+        """Supernode partition at the default relaxation (lazy, cached);
+        ``None`` when the analysis was built without a matrix handle."""
+        if self._sn_cache is None and self._sn_thunk is not None:
+            object.__setattr__(self, "_sn_cache", self._sn_thunk())
+        return self._sn_cache
+
+    @property
+    def supernode_count(self) -> int:
+        sn = self.supernodes
+        return sn.num_supernodes if sn is not None else self.n
+
+    @property
+    def mean_block_size(self) -> float:
+        sn = self.supernodes
+        return sn.mean_block_size if sn is not None else 1.0
+
+    @property
+    def dense_block_fraction(self) -> float:
+        sn = self.supernodes
+        return sn.dense_block_fraction if sn is not None else 0.0
 
     @property
     def critical_fraction(self) -> float:
@@ -72,6 +107,9 @@ class MatrixAnalysis:
             "serial_fraction": round(self.serial_fraction, 6),
             "critical_path_flops": self.critical_path_flops,
             "critical_fraction": round(self.critical_fraction, 6),
+            "supernode_count": self.supernode_count,
+            "mean_block_size": round(self.mean_block_size, 3),
+            "dense_block_fraction": round(self.dense_block_fraction, 4),
         }
 
     def pretty(self) -> str:
@@ -125,4 +163,5 @@ def analyze(
         solve_flops=solve_flops,
         serial_fraction=levels.num_levels / max(L.n, 1),
         _cp_thunk=lambda: compute_critical_path(L, levels, upper=upper),
+        _sn_thunk=lambda: detect_supernodes(L, upper=upper),
     )

@@ -23,7 +23,10 @@ overwrites them before any consumer reads them — so only writes past
 position ``n`` need scratch, provided by the ``n_pad - n`` tail.
 
 This module also holds the plain torch-op executor of the layout
-(``strategy="levelset"``), the baseline the kernels are measured against.
+(``strategy="levelset"``), the baseline the kernels are measured against,
+the rewritten solve's RHS transform ``b' = E b`` on the SpMV kernel, and
+the blocked (supernodal) layout and its executor on the SpMV and
+block-apply kernels.
 """
 from __future__ import annotations
 
@@ -33,8 +36,11 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..kernels.spmv_ell.ops import device_cols, spmv
 from ..kernels.sptrsv_level.ref import level_walk_ref
-from .codegen import Schedule, stack_sub_slabs
+from ..kernels.trsm_block.ops import block_apply
+from .codegen import Schedule, build_ell, stack_sub_slabs
+from .rewrite import RewriteResult
 
 __all__ = [
     "PackedSegment",
@@ -46,6 +52,12 @@ __all__ = [
     "permute_rhs",
     "segment_steps",
     "make_packed_levelset_solver",
+    "make_packed_rhs_transform",
+    "PackedBlockSegment",
+    "PackedBlockedLayout",
+    "build_packed_blocked_layout",
+    "pack_blocked_values",
+    "make_packed_blocked_solver",
 ]
 
 
@@ -292,3 +304,217 @@ def make_packed_levelset_solver(layout: PackedLayout, *, device):
         return x.index_select(0, pos)
 
     return solve
+
+
+# --------------------------------------------------------------------------
+# Blocked (supernodal) packed layout
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class PackedBlockSegment:
+    """Geometry of one super-level inside the packed blocked buffers.
+
+    The segment's real rows own permuted positions ``[off, off + R)``; its
+    lane space is ``B * T`` block-major lanes, of which ``lane_idx`` are the
+    real ones (the rest are padding).  ``val_off`` indexes the flat panel
+    buffers (``K * B * T`` entries), ``dinv_off`` the flat dense-block
+    buffers (``B * T * T`` entries)."""
+
+    off: int
+    R: int
+    B: int
+    T: int
+    K: int
+    val_off: int
+    dinv_off: int
+    lane_idx: np.ndarray      # (R,) int32
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedBlockedLayout:
+    """Permuted-space packed form of a
+    :class:`~repro_torch.core.coarsen.BlockSchedule`.
+
+    Same contract as :class:`PackedLayout`: ``cols_flat`` holds permuted
+    *positions*; ``vals_src`` (panel values) and ``diag_src`` (dense
+    diagonal-block entries) map every packed value back into the target
+    matrix's ``data`` array (−1 = padding / structural zero), so
+    :func:`pack_blocked_values` re-packs both runtime buffers — including
+    the batched block re-inversion — from new values alone.  ``pad_eye_flat``
+    is the identity padding added before every inversion."""
+
+    n: int
+    nnz: int
+    perm: np.ndarray
+    pos: np.ndarray
+    segments: tuple
+    cols_flat: np.ndarray
+    vals_flat: np.ndarray
+    vals_src: np.ndarray
+    dinv_flat: np.ndarray     # float64 inverted blocks, concatenated raveled
+    diag_src: np.ndarray      # int64, aligned with dinv_flat
+    pad_eye_flat: np.ndarray  # float64, aligned with dinv_flat
+
+    def stats(self) -> PackedStats:
+        item = self.vals_flat.itemsize
+        pad = int((self.vals_src < 0).sum() + (self.diag_src < 0).sum())
+        return PackedStats(
+            permutation_applied=True,
+            value_bytes=self.vals_flat.nbytes + self.dinv_flat.nbytes,
+            index_bytes=self.cols_flat.nbytes,
+            padded_value_bytes=pad * item,
+            n_pad=self.n,
+            num_segments=len(self.segments),
+        )
+
+
+def build_packed_blocked_layout(bsched) -> PackedBlockedLayout:
+    """Lower a blocked schedule into permuted-space flat buffers: the
+    blocked execution order (super-level by super-level, block-major)
+    defines ``perm``; panel columns are remapped to positions once here."""
+    n = bsched.n
+    perm = bsched.perm()
+    assert perm.size == n, (perm.size, n)
+    pos = np.empty(n, dtype=np.int64)
+    pos[perm] = np.arange(n, dtype=np.int64)
+    pos32 = pos.astype(np.int32)
+
+    segments = []
+    cols_b, vals_b, vsrc_b, dinv_b, dsrc_b, eye_b = [], [], [], [], [], []
+    off = voff = doff = 0
+    dtype = (bsched.slabs[0].vals.dtype if bsched.slabs else np.float64)
+    for slab in bsched.slabs:
+        B, T, K, R = slab.B, slab.T, slab.K, slab.R
+        lane_idx = np.nonzero(slab.lane_row < n)[0].astype(np.int32)
+        segments.append(PackedBlockSegment(
+            off=off, R=R, B=B, T=T, K=K, val_off=voff, dinv_off=doff,
+            lane_idx=lane_idx))
+        # padded panel lanes keep column 0 -> position pos[0]: its value is
+        # 0 and x starts zero-filled, so the gather is a no-op everywhere
+        cols_b.append(pos32[slab.cols].ravel())
+        vals_b.append(slab.vals.ravel())
+        vsrc_b.append(slab.val_src.ravel())
+        dinv_b.append(slab.dinv.ravel())
+        dsrc_b.append(slab.diag_src.ravel())
+        eye_b.append(slab.pad_eye.ravel())
+        off += R
+        voff += K * B * T
+        doff += B * T * T
+    assert off == n, (off, n)
+
+    def cat(blocks, dt):
+        return (np.concatenate(blocks).astype(dt, copy=False) if blocks
+                else np.zeros(0, dtype=dt))
+
+    return PackedBlockedLayout(
+        n=n, nnz=bsched.nnz, perm=perm, pos=pos, segments=tuple(segments),
+        cols_flat=cat(cols_b, np.int32),
+        vals_flat=cat(vals_b, dtype),
+        vals_src=cat(vsrc_b, np.int64),
+        dinv_flat=cat(dinv_b, np.float64),
+        diag_src=cat(dsrc_b, np.int64),
+        pad_eye_flat=cat(eye_b, np.float64),
+    )
+
+
+def pack_blocked_values(layout: PackedBlockedLayout, data: np.ndarray):
+    """Re-pack the blocked value buffers for new ``data`` of the same
+    pattern: one vectorized gather for the panel values, one gather +
+    identity padding + batched ``np.linalg.inv`` (float64, host-side) for
+    the dense diagonal blocks.  O(nnz + Σ B·T³) with no analysis.  Returns
+    numpy ``(vals_flat, dinv_flat)`` shaped like the layout's."""
+    vals = gather_src(data, layout.vals_src, 0.0, layout.vals_flat.dtype)
+    dense = (gather_src(data, layout.diag_src, 0.0, np.float64)
+             + layout.pad_eye_flat)
+    dinv = np.empty_like(layout.dinv_flat)
+    for seg in layout.segments:
+        size = seg.B * seg.T * seg.T
+        blk = dense[seg.dinv_off : seg.dinv_off + size].reshape(
+            seg.B, seg.T, seg.T)
+        try:
+            inv = np.linalg.inv(blk)
+        except np.linalg.LinAlgError:
+            # A singular/non-finite diagonal block (zero pivot admitted via
+            # refresh(validate=False)) must not abort the re-pack: invert
+            # the healthy blocks, poison the broken ones with NaN so the
+            # solve produces NaN rows a guarded solver's breakdown policy
+            # can see and handle.
+            inv = np.empty_like(blk)
+            for i in range(blk.shape[0]):
+                try:
+                    inv[i] = np.linalg.inv(blk[i])
+                except np.linalg.LinAlgError:
+                    inv[i] = np.nan
+        dinv[seg.dinv_off : seg.dinv_off + size] = inv.ravel()
+    return vals, dinv
+
+
+def make_packed_blocked_solver(layout: PackedBlockedLayout, *, device):
+    """Permuted-space blocked (supernodal) executor.
+
+    Returns ``solve(b, values)`` with ``values = (vals_flat, dinv_flat)`` as
+    tensors on ``device`` (from :func:`pack_blocked_values`).  Per
+    super-level: the panel SpMV ``s = Panel x`` (one SpMV kernel launch),
+    the lane scatter of ``b - s`` (torch ops), the batched diagonal-block
+    apply (one block-apply kernel launch), and the lane gather written
+    contiguously into ``x``.  ``b`` may be ``(n,)`` or ``(n, m)``; values
+    are cast to ``b``'s dtype per solve."""
+    dev = torch.device(device)
+    # padded panel lanes keep column 0 -> position pos[0]: their value is 0
+    # and x starts zero-filled, so the gather adds nothing
+    cols_flat = device_cols(layout.cols_flat, layout.n, dev)
+    perm = torch.from_numpy(layout.perm).to(dev)
+    pos = torch.from_numpy(layout.pos).to(dev)
+    segs = [(seg.off, seg.R, seg.B, seg.T, seg.K, seg.val_off, seg.dinv_off,
+             torch.from_numpy(seg.lane_idx.astype(np.int64)).to(dev))
+            for seg in layout.segments]
+
+    def solve(b: torch.Tensor, values) -> torch.Tensor:
+        vals_flat, dinv_flat = values
+        dt = b.dtype
+        vf = vals_flat.to(dt)
+        dvf = dinv_flat.to(dt)
+        tail = tuple(b.shape[1:])
+        bhat = b.index_select(0, perm)
+        x = torch.zeros_like(bhat)
+        for off, R, B, T, K, voff, doff, lane in segs:
+            BT = B * T
+            span = slice(voff, voff + K * BT)
+            # rhs = b - s on the real lanes, -s on the pads: -s + b is
+            # exactly b - s in IEEE arithmetic
+            rhs = spmv(x, cols_flat[span].view(K, BT),
+                       vf[span].view(K, BT)).neg_()
+            rhs.index_add_(0, lane, bhat[off: off + R])
+            xb = block_apply(dvf[doff: doff + BT * T].view(B, T, T),
+                             rhs.view((B, T) + tail))
+            torch.index_select(xb.view((BT,) + tail), 0, lane,
+                               out=x[off: off + R])
+        return x.index_select(0, pos)
+
+    return solve
+
+
+def make_packed_rhs_transform(res: RewriteResult, *, device):
+    """``b' = E b`` on the SpMV kernel, with E's ELL values as a persistent
+    buffer.
+
+    Returns ``(transform(b, e_vals), e_vals0, repack)``: ``e_vals0`` is the
+    ``(K, n)`` value tensor on ``device`` and ``repack(e_data)`` re-packs
+    new E values (from
+    :func:`repro_torch.core.rewrite.replay_rewrite_values`) as a numpy array
+    of its shape.  E is in the original row order, so ``b`` is transformed
+    before it is permuted.  When E is the identity (no rewrite survived the
+    budgets) returns ``(None, None, None)``: a no-op SpMV would still cost a
+    launch and a buffer per solve."""
+    if res.stats.e_nnz_offdiag == 0:
+        return None, None, None
+    dev = torch.device(device)
+    ell = build_ell(res.E)
+    cols = device_cols(ell.cols, res.E.n, dev)
+
+    def transform(b: torch.Tensor, e_vals: torch.Tensor) -> torch.Tensor:
+        return spmv(b, cols, e_vals.to(b.dtype))
+
+    def repack(e_data: np.ndarray) -> np.ndarray:
+        return gather_src(e_data, ell.val_src, 0.0, ell.vals.dtype)
+
+    return transform, torch.from_numpy(ell.vals).to(dev), repack

@@ -17,6 +17,14 @@ Strategies ported so far (all in ``layout="permuted"``):
                    chain is ``depth`` launches
 ``pallas_fused``   the whole solve as one CUDA launch
                    (:mod:`repro_torch.kernels.sptrsv_fused`)
+``blocked``        supernodal: per super-level one panel SpMV launch
+                   (:mod:`repro_torch.kernels.spmv_ell`) and one batched
+                   dense diagonal-block apply launch
+                   (:mod:`repro_torch.kernels.trsm_block`)
+
+``rewrite=RewriteConfig(...)`` applies the paper's equation rewriting
+before any of them: the solve runs on the rewritten ``L'`` after the RHS
+transform ``b' = E b``, one SpMV launch per solve.
 
 On ``device="cpu"`` the kernel strategies run their kernels' plain torch
 versions.  Every other strategy or option of the JAX package raises
@@ -29,6 +37,7 @@ same tensors, so their addresses stay fixed.
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Callable, Optional
 
 import numpy as np
@@ -36,22 +45,30 @@ import torch
 
 from ..kernels.backend import resolve_device
 from .analysis import MatrixAnalysis, analyze
-from .coarsen import CoarsenConfig, coarsen_schedule
+from .coarsen import (BlockSchedule, CoarsenConfig, build_block_schedule,
+                      coarsen_schedule)
 from .codegen import Schedule, build_schedule
 from .csr import CSRMatrix
-from .levels import LevelSets, build_level_sets, build_reverse_level_sets
-from .packed import (PackedStats, build_packed_layout,
-                     make_packed_levelset_solver, pack_values)
+from .levels import (LevelSets, SupernodeConfig, Supernodes, build_level_sets,
+                     build_reverse_level_sets, detect_supernodes)
+from .packed import (PackedStats, build_packed_blocked_layout,
+                     build_packed_layout, make_packed_blocked_solver,
+                     make_packed_levelset_solver, make_packed_rhs_transform,
+                     pack_blocked_values, pack_values)
+from .rewrite import (RewriteConfig, RewriteReplayError, RewriteResult,
+                      replay_rewrite_values, rewrite_matrix)
 
 __all__ = ["SpTRSV", "STRATEGIES", "LAYOUTS"]
 
-STRATEGIES = ("levelset", "pallas_level", "pallas_fused")
+logger = logging.getLogger(__name__)
+
+STRATEGIES = ("levelset", "pallas_level", "pallas_fused", "blocked")
 LAYOUTS = ("permuted",)
 
 # What the JAX package offers and the port does not yet: ROADMAP queue A.
 _UNPORTED_STRATEGIES = {
     "serial": "A2", "levelset_unroll": "A2", "auto": "A6", "sweep": "A7",
-    "blocked": "A8", "distributed": "A10",
+    "distributed": "A10",
 }
 
 
@@ -71,10 +88,30 @@ def _as_coarsen_config(coarsen) -> Optional[CoarsenConfig]:
     return coarsen
 
 
+def _as_rewrite_config(rewrite) -> Optional[RewriteConfig]:
+    """None → no rewriting, a RewriteConfig → itself."""
+    if rewrite is not None and not isinstance(rewrite, RewriteConfig):
+        raise TypeError(f"rewrite must be a RewriteConfig, got {rewrite!r}")
+    return rewrite
+
+
+def _as_supernode_config(supernodes) -> SupernodeConfig:
+    """None/True/False → the default detection config (as in the JAX
+    package, where ``False`` only keeps ``blocked`` out of the ``auto``
+    planner), a SupernodeConfig → itself."""
+    if supernodes is None or supernodes is True or supernodes is False:
+        return SupernodeConfig()
+    if not isinstance(supernodes, SupernodeConfig):
+        raise TypeError(
+            f"supernodes must be a bool or SupernodeConfig, got {supernodes!r}")
+    return supernodes
+
+
 def _build_options(*, strategy: str = "levelset", unroll_threshold: int = 4,
                    bucket_pad_ratio: float = 0.0, coarsen=None,
                    layout: str = "permuted", device="cuda", rewrite=None,
-                   guard=None, sweep=None, supernodes=None, mesh=None) -> dict:
+                   guard=None, sweep=None, supernodes=None,
+                   block_kernel: str = "auto", mesh=None) -> dict:
     """Check the options of :meth:`SpTRSV.build` / :meth:`SpTRSV.build_pair`
     and return the keyword arguments of ``SpTRSV._build_system``.  Options
     of the JAX package that are not ported raise ``NotImplementedError``
@@ -87,15 +124,20 @@ def _build_options(*, strategy: str = "levelset", unroll_threshold: int = 4,
         _not_ported("layout='scatter'", "A2")
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}; ported: {LAYOUTS}")
-    for value, name, item in ((rewrite, "rewrite=", "A5"), (guard, "guard=", "A7"),
-                              (sweep, "sweep=", "A7"),
-                              (supernodes, "supernodes=", "A8"),
+    for value, name, item in ((guard, "guard=", "A7"), (sweep, "sweep=", "A7"),
                               (mesh, "mesh=", "A10")):
         if value is not None:
             _not_ported(name, item)
+    if block_kernel != "auto":
+        # the JAX option picks Pallas or dot_general; the port always runs
+        # the kernel on the card and its plain version on the CPU
+        raise ValueError(f"block_kernel={block_kernel!r}: the port takes "
+                         "'auto' only")
     return dict(strategy=strategy, unroll_threshold=unroll_threshold,
                 bucket_pad_ratio=bucket_pad_ratio,
                 coarsen=_as_coarsen_config(coarsen),
+                rewrite=_as_rewrite_config(rewrite),
+                supernodes=_as_supernode_config(supernodes),
                 device=resolve_device(device))
 
 
@@ -113,12 +155,19 @@ class _RefreshCtx:
     """Cached symbolic state for value-only refresh: ``source`` is the
     user's factor (pattern reference), ``values_map`` reorders its data into
     the solved system's storage (the CSC permutation for transpose solvers),
-    ``repack`` turns system data into the executor's value arrays."""
+    ``repack`` turns system (or rewritten ``L'``) data into the executor's
+    value arrays.  Rewritten solvers also keep the rewrite (its plan and
+    the ``L'``/``E`` patterns), ``e_repack`` for E's values, and
+    ``rebuild(data)``, the cold build a plan that does not transfer falls
+    back to."""
 
     source: CSRMatrix
     system: CSRMatrix
     values_map: Optional[np.ndarray]
     repack: Callable
+    rewrite: Optional[RewriteResult] = None
+    e_repack: Optional[Callable] = None
+    rebuild: Optional[Callable] = None
 
 
 @dataclasses.dataclass
@@ -127,12 +176,13 @@ class SpTRSV:
 
     ``transpose=True`` solvers execute the backward sweep ``Lᵀ x = b``; the
     executor is the same, only the schedule (backward level sets,
-    column-packed slabs) differs."""
+    column-packed slabs) differs.  ``schedule`` is ``None`` for
+    ``blocked``, which runs ``block_schedule``."""
 
     n: int
     strategy: str
     analysis: MatrixAnalysis
-    schedule: Schedule
+    schedule: Optional[Schedule]
     device: torch.device
     _solve_fn: Callable
     _values: tuple
@@ -140,6 +190,11 @@ class SpTRSV:
     transpose: bool = False
     layout: str = "permuted"
     packed_stats: Optional[PackedStats] = None
+    block_schedule: Optional[BlockSchedule] = None
+    supernodes: Optional[Supernodes] = None
+    rewrite_result: Optional[RewriteResult] = None
+    _rhs_fn: Optional[Callable] = None
+    _e_values: Optional[torch.Tensor] = None
 
     @staticmethod
     def build(L: CSRMatrix, *, transpose: bool = False, **options) -> "SpTRSV":
@@ -147,14 +202,18 @@ class SpTRSV:
         ``transpose=True``).  ``L`` is always the lower-triangular factor.
 
         Options: ``strategy`` (``"levelset"``, ``"pallas_level"``,
-        ``"pallas_fused"``), ``device`` (``"cuda"``, the default, or
-        ``"cpu"``), ``coarsen`` (True / :class:`CoarsenConfig`: merge
+        ``"pallas_fused"``, ``"blocked"``), ``device`` (``"cuda"``, the
+        default, or ``"cpu"``), ``rewrite`` (a :class:`RewriteConfig`:
+        equation rewriting before the schedule is built, for every
+        strategy), ``coarsen`` (True / :class:`CoarsenConfig`: merge
         adjacent levels into chained super-level slabs; ``pallas_fused``
-        walks every wavefront anyway), ``unroll_threshold`` (enters only the
-        coarsening cost model, as in the JAX package), ``bucket_pad_ratio``
-        (> 1 splits levels into nnz buckets) and ``layout="permuted"``.
-        ``rewrite``, ``guard``, ``sweep``, ``supernodes`` and ``mesh`` are
-        not ported yet and raise ``NotImplementedError`` when given."""
+        walks every wavefront anyway), ``supernodes`` (a
+        :class:`SupernodeConfig` for ``blocked``; ``block_kernel`` takes
+        ``"auto"`` only), ``unroll_threshold`` (enters only the coarsening
+        cost model, as in the JAX package), ``bucket_pad_ratio`` (> 1 splits
+        levels into nnz buckets) and ``layout="permuted"``.  ``guard``,
+        ``sweep`` and ``mesh`` are not ported yet and raise
+        ``NotImplementedError`` when given."""
         opts = _build_options(**options)
         if not L.is_lower_triangular():
             raise ValueError("SpTRSV requires lower-triangular L with nonzero diagonal")
@@ -195,20 +254,50 @@ class SpTRSV:
         unroll_threshold: int,
         bucket_pad_ratio: float,
         coarsen: Optional[CoarsenConfig],
+        rewrite: Optional[RewriteConfig],
+        supernodes: SupernodeConfig,
         device: torch.device,
         source: CSRMatrix,
         values_map: Optional[np.ndarray],
     ) -> "SpTRSV":
         """``system`` is the triangular matrix actually solved (``L``
         forward, ``L.transpose()`` backward) with its level sets analyzed;
-        ``source``/``values_map`` record where its values came from."""
+        ``source``/``values_map`` record where its values came from.  With
+        ``rewrite`` the executor runs on the rewritten ``target`` (``L'``)
+        and the solve first applies ``b' = E b``."""
+        build_kwargs = dict(
+            upper=upper, strategy=strategy, unroll_threshold=unroll_threshold,
+            bucket_pad_ratio=bucket_pad_ratio, coarsen=coarsen,
+            rewrite=rewrite, supernodes=supernodes, device=device)
         analysis = analyze(system, levels, upper=upper)
-        schedule = build_schedule(system, levels, upper=upper,
-                                  bucket_pad_ratio=bucket_pad_ratio)
-        if coarsen is not None and strategy != "pallas_fused":
-            schedule = coarsen_schedule(schedule, coarsen,
-                                        unroll_threshold=unroll_threshold)
-        if strategy == "levelset":
+        rres = None
+        target, target_levels = system, levels
+        rhs_fn = e_values = e_repack = None
+        if rewrite is not None:
+            rres = rewrite_matrix(system, levels, rewrite, upper=upper)
+            target, target_levels = rres.L, rres.levels
+            rhs_fn, e_values, e_repack = make_packed_rhs_transform(
+                rres, device=device)
+        schedule = block_schedule = None
+        if strategy != "blocked":
+            schedule = build_schedule(target, target_levels, upper=upper,
+                                      bucket_pad_ratio=bucket_pad_ratio)
+            if coarsen is not None and strategy != "pallas_fused":
+                schedule = coarsen_schedule(schedule, coarsen,
+                                            unroll_threshold=unroll_threshold)
+        if strategy == "blocked":
+            # detection and packing run on the (possibly rewritten) target,
+            # so blocked composes with rewriting like every other executor
+            block_schedule = build_block_schedule(
+                target, detect_supernodes(target, upper=upper,
+                                          config=supernodes), upper=upper)
+            blay = build_packed_blocked_layout(block_schedule)
+            fn = make_packed_blocked_solver(blay, device=device)
+            values = tuple(torch.from_numpy(a).to(device)
+                           for a in pack_blocked_values(blay, target.data))
+            repack = lambda data, _bl=blay: pack_blocked_values(_bl, data)  # noqa: E731
+            packed_stats = blay.stats()
+        elif strategy == "levelset":
             playout = build_packed_layout(schedule)
             fn = make_packed_levelset_solver(playout, device=device)
             values = (torch.from_numpy(playout.vals_flat).to(device),
@@ -236,12 +325,30 @@ class SpTRSV:
                 n_pad=flay.n_pad,
                 num_segments=1,
             )
+
+        def rebuild(data: np.ndarray) -> "SpTRSV":
+            sys_data = data[values_map] if values_map is not None else data
+            return SpTRSV._build_system(
+                CSRMatrix(system.indptr, system.indices,
+                          sys_data.astype(system.dtype, copy=False),
+                          system.shape),
+                levels, source=CSRMatrix(
+                    source.indptr, source.indices,
+                    data.astype(source.dtype, copy=False), source.shape),
+                values_map=values_map, **build_kwargs)
+
         return SpTRSV(
             n=system.n, strategy=strategy, analysis=analysis,
             schedule=schedule, device=device, _solve_fn=fn, _values=values,
-            _refresh_ctx=_RefreshCtx(source=source, system=system,
-                                     values_map=values_map, repack=repack),
-            transpose=upper, packed_stats=packed_stats)
+            _refresh_ctx=_RefreshCtx(
+                source=source, system=system, values_map=values_map,
+                repack=repack, rewrite=rres, e_repack=e_repack,
+                rebuild=rebuild),
+            transpose=upper, packed_stats=packed_stats,
+            block_schedule=block_schedule,
+            supernodes=(block_schedule.supernodes
+                        if block_schedule is not None else None),
+            rewrite_result=rres, _rhs_fn=rhs_fn, _e_values=e_values)
 
     @property
     def dtype(self) -> np.dtype:
@@ -267,7 +374,10 @@ class SpTRSV:
             raise ValueError(f"b is on {b.device}; the solver runs on {self.device}")
         if not b.is_floating_point():
             raise ValueError(f"b must be floating point, got {b.dtype}")
-        return self._solve_fn(b.contiguous(), self._values)
+        b = b.contiguous()
+        if self._rhs_fn is not None:
+            b = self._rhs_fn(b, self._e_values)
+        return self._solve_fn(b, self._values)
 
     def solve_batched(self, B: torch.Tensor) -> torch.Tensor:
         """Explicitly-batched alias: ``B: (n, m)`` → ``X: (n, m)``."""
@@ -281,11 +391,16 @@ class SpTRSV:
 
         ``new_values`` is the new ``data`` array aligned with the original
         factor's CSR storage (or a :class:`CSRMatrix` with the identical
-        pattern).  Transpose solvers reorder it through the cached CSC map.
-        The packed value arrays are re-packed with one vectorized gather and
-        copied into the existing device tensors.  ``validate`` (default on)
-        raises ``ValueError`` on non-finite values or zero pivots.  Returns
-        ``self``."""
+        pattern).  Transpose solvers reorder it through the cached CSC map;
+        rewritten solvers replay the recorded elimination plan
+        (:func:`repro_torch.core.rewrite.replay_rewrite_values`) for new
+        ``L'``/``E`` values in the cached patterns.  The packed value arrays
+        are re-packed (gathers; ``blocked`` re-inverts its dense blocks on
+        the host) and copied into the existing device tensors.  A plan that
+        does not transfer to the new values (a zero pivot, or fill outside
+        the cached pattern) falls back to a cold rebuild, whose buffers are
+        new.  ``validate`` (default on) raises ``ValueError`` on non-finite
+        values or zero pivots.  Returns ``self``."""
         ctx = self._refresh_ctx
         if isinstance(new_values, CSRMatrix):
             src = ctx.source
@@ -311,7 +426,25 @@ class SpTRSV:
                     f"pivot(s); pass validate=False to accept them anyway")
         sys_data = (data[ctx.values_map] if ctx.values_map is not None
                     else data).astype(ctx.system.dtype, copy=False)
-        for buf, new in zip(self._values, ctx.repack(sys_data)):
+        target_data = sys_data
+        if ctx.rewrite is not None:
+            rw = ctx.rewrite
+            try:
+                target_data, e_data = replay_rewrite_values(
+                    CSRMatrix(ctx.system.indptr, ctx.system.indices, sys_data,
+                              ctx.system.shape), rw.plan, rw.L, rw.E)
+            except RewriteReplayError as err:
+                logger.warning("SpTRSV.refresh: rewrite plan did not transfer "
+                               "(%s) — falling back to a cold rebuild", err)
+                self.__dict__.update(ctx.rebuild(data).__dict__)
+                return self
+            if ctx.e_repack is not None:
+                self._e_values.copy_(torch.from_numpy(ctx.e_repack(e_data)))
+            self.rewrite_result = dataclasses.replace(
+                rw, L=CSRMatrix(rw.L.indptr, rw.L.indices, target_data,
+                                rw.L.shape),
+                E=CSRMatrix(rw.E.indptr, rw.E.indices, e_data, rw.E.shape))
+        for buf, new in zip(self._values, ctx.repack(target_data)):
             buf.copy_(torch.from_numpy(np.ascontiguousarray(new)))
         self._refresh_ctx = dataclasses.replace(
             ctx, source=CSRMatrix(ctx.source.indptr, ctx.source.indices,
@@ -322,6 +455,9 @@ class SpTRSV:
         """Execution-layout and schedule statistics — the JAX package's
         ``stats()`` keys; options not ported report ``None``."""
         ps = self.packed_stats
+        sn = self.supernodes
+        an = self.analysis
+        rs = self.rewrite_result.stats if self.rewrite_result else None
         return {
             "strategy": self.strategy,
             "layout": self.layout,
@@ -329,10 +465,14 @@ class SpTRSV:
             "transpose": self.transpose,
             "n": self.n,
             "nnz": self.analysis.nnz,
-            "segments": self.schedule.num_segments,
-            "supernode_count": None,
-            "mean_block_size": None,
-            "dense_block_fraction": None,
+            "segments": (self.schedule.num_segments if self.schedule is not None
+                         else self.block_schedule.num_segments),
+            "supernode_count": (sn.num_supernodes if sn is not None
+                                else an.supernode_count),
+            "mean_block_size": (sn.mean_block_size if sn is not None
+                                else an.mean_block_size),
+            "dense_block_fraction": (sn.dense_block_fraction if sn is not None
+                                     else an.dense_block_fraction),
             "permutation_applied": bool(ps and ps.permutation_applied),
             "packed_value_bytes": ps.value_bytes,
             "packed_index_bytes": ps.index_bytes,
@@ -341,8 +481,8 @@ class SpTRSV:
             "padded_value_bytes": ps.padded_value_bytes,
             "n_pad": ps.n_pad,
             "refreshable_in_place": True,
-            "rewrite": None,
-            "rewrite_policy": None,
+            "rewrite": rs.summary() if rs else None,
+            "rewrite_policy": rs.policy if rs else None,
             "critical_path_flops": self.analysis.critical_path_flops,
             "plan": None,
             "planned_transform": None,

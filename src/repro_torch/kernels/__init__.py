@@ -4,6 +4,9 @@ versions.
 * ``sptrsv_level``  — one wavefront as gather/FMA/divide over an ELL slab
 * ``sptrsv_fused``  — the whole solve in one launch (one thread block walking
                       the wavefront spans with a barrier between them)
+* ``spmv_ell``      — ELL SpMV ``y = M v``: the rewrite's ``b' = E b`` and
+                      the blocked solve's panel update
+* ``trsm_block``    — the blocked solve's batched dense ``Dinv @ rhs``
 
 Each package: ``ops.py`` (the wrapper a solve calls: the kernel for CUDA
 tensors, the plain version for CPU tensors), ``cuda.py`` (ctypes binding,

@@ -1,6 +1,7 @@
 """The CUDA kernels on the card: each held against its plain torch version
-on the same CUDA tensors, and the solver's kernel strategies against the
-plain ``levelset`` executor.  Marked ``cuda``: they skip where no GPU is
+on the same CUDA tensors; the solver's kernel strategies, with and without
+equation rewriting, against the plain ``levelset`` executor; and the
+blocked solve against a dense solve.  Marked ``cuda``: they skip where no GPU is
 visible, and run on a machine with one via
 
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
@@ -11,18 +12,24 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import SpTRSV
+from repro_torch.core import RewriteConfig, SpTRSV
 from repro_torch.core.coarsen import coarsen_schedule
-from repro_torch.core.codegen import build_schedule
+from repro_torch.core.codegen import build_ell, build_schedule
 from repro_torch.core.levels import build_level_sets
 from repro_torch.core.packed import segment_steps
+from repro_torch.core.rewrite import rewrite_matrix
+from repro_torch.kernels.spmv_ell import cuda as spmv_cuda
+from repro_torch.kernels.spmv_ell.ops import device_cols
+from repro_torch.kernels.spmv_ell.ref import spmv_ref
 from repro_torch.kernels.sptrsv_fused import cuda as fused_cuda
 from repro_torch.kernels.sptrsv_fused.ops import build_layout
 from repro_torch.kernels.sptrsv_fused.ref import fused_solve_ref
 from repro_torch.kernels.sptrsv_level import cuda as level_cuda
 from repro_torch.kernels.sptrsv_level.ops import make_packed_solver
 from repro_torch.kernels.sptrsv_level.ref import level_walk_ref
-from repro_torch.sparse import lung2_like
+from repro_torch.kernels.trsm_block import cuda as trsm_cuda
+from repro_torch.kernels.trsm_block.ref import block_apply_ref
+from repro_torch.sparse import banded_lower, lung2_like
 
 # |kernel - plain| / max |plain|: nvcc contracts to FMA, bits may differ
 KERNEL_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
@@ -99,3 +106,64 @@ def test_solver_on_card_matches_levelset(card, kw):
                       SpTRSV.build_pair(L, device=card, strategy="levelset")):
         for rhs in (B[:, 0].contiguous(), B):
             assert _rel(s.solve(rhs), ref.solve(rhs)) <= 1e-12
+
+
+@pytest.mark.parametrize("m", [1, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_spmv_kernel_matches_plain(card, dtype, m):
+    L = lung2_like(scale=0.02, fat_levels=4)
+    ell = build_ell(rewrite_matrix(L, config=RewriteConfig()).E)
+    cols = device_cols(ell.cols, L.n, card)
+    vals = torch.from_numpy(ell.vals).to(card, dtype)
+    g = torch.Generator().manual_seed(3)
+    v = torch.randn((L.n,) + (() if m == 1 else (m,)), generator=g,
+                    dtype=dtype).to(card)
+    key = "spmv_ell" if m == 1 else "spmv_ell_batched"
+    before = spmv_cuda.launches[key]
+    yk = spmv_cuda.spmv(v, cols, vals)
+    yr = spmv_ref(v, cols.long(), vals)
+    torch.cuda.synchronize()
+    assert spmv_cuda.launches[key] == before + 1
+    assert _rel(yk, yr) <= KERNEL_TOL[dtype]
+
+
+@pytest.mark.parametrize("m", [1, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_block_apply_kernel_matches_plain(card, dtype, m):
+    g = torch.Generator().manual_seed(4)
+    dinv = torch.randn((512, 64, 64), generator=g, dtype=dtype).to(card)
+    rhs = torch.randn((512, 64) + (() if m == 1 else (m,)), generator=g,
+                      dtype=dtype).to(card)
+    key = "trsm_block_apply" if m == 1 else "trsm_block_apply_batched"
+    before = trsm_cuda.launches[key]
+    out = trsm_cuda.block_apply(dinv, rhs)
+    ref = block_apply_ref(dinv, rhs)
+    torch.cuda.synchronize()
+    assert trsm_cuda.launches[key] == before + 1
+    assert _rel(out, ref) <= KERNEL_TOL[dtype]
+
+
+@pytest.mark.parametrize("kw", [dict(strategy="levelset"),
+                                dict(strategy="pallas_level"),
+                                dict(strategy="pallas_level", coarsen=True),
+                                dict(strategy="pallas_fused")],
+                         ids=["levelset", "level", "level+coarsen", "fused"])
+def test_rewritten_solver_on_card_matches_levelset(card, kw):
+    L = lung2_like(scale=0.02, fat_levels=4)
+    B = torch.from_numpy(np.random.default_rng(5).standard_normal((L.n, 4))).to(card)
+    for s, ref in zip(SpTRSV.build_pair(L, device=card, rewrite=RewriteConfig(), **kw),
+                      SpTRSV.build_pair(L, device=card, strategy="levelset")):
+        for rhs in (B[:, 0].contiguous(), B):
+            assert _rel(s.solve(rhs), ref.solve(rhs)) <= 1e-12
+
+
+def test_blocked_solver_on_card_matches_dense(card):
+    L = banded_lower(300, bandwidth=8, fill=1.0)
+    dense = L.to_dense()
+    b = np.random.default_rng(6).standard_normal((L.n, 4))
+    for s, A in zip(SpTRSV.build_pair(L, device=card, strategy="blocked"),
+                    (dense, dense.T)):
+        for rhs in (b[:, 0].copy(), b):
+            x = s.solve(torch.from_numpy(rhs).to(card)).cpu().numpy()
+            np.testing.assert_allclose(x, np.linalg.solve(A, rhs),
+                                       rtol=1e-12, atol=1e-12)

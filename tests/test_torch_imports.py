@@ -15,7 +15,8 @@ FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.MULTILINE
 CHECK = (
     "import repro_torch, repro_torch.core, repro_torch.sparse, "
     "repro_torch.kernels.build, repro_torch.kernels.sptrsv_level.ops, "
-    "repro_torch.kernels.sptrsv_fused.ops, sys; "
+    "repro_torch.kernels.sptrsv_fused.ops, repro_torch.kernels.spmv_ell.ops, "
+    "repro_torch.kernels.trsm_block.ops, repro_torch.core.rewrite, sys; "
     "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
     "or m.startswith(('jax.', 'repro.'))]; "
     "assert not bad, bad"

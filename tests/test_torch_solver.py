@@ -194,10 +194,8 @@ UNPORTED = {
     "serial": dict(strategy="serial"),
     "levelset_unroll": dict(strategy="levelset_unroll"),
     "auto": dict(strategy="auto"), "sweep": dict(strategy="sweep"),
-    "blocked": dict(strategy="blocked"),
     "distributed": dict(strategy="distributed"),
-    "rewrite=": dict(rewrite="thin"), "guard=": dict(guard=True),
-    "sweep=": dict(sweep=True), "supernodes=": dict(supernodes=False),
+    "guard=": dict(guard=True), "sweep=": dict(sweep=True),
     "mesh=": dict(mesh="data"), "scatter": dict(layout="scatter"),
 }
 
@@ -271,13 +269,11 @@ def test_stats_match_jax(variant, transpose):
     a, b = ours.stats(), ref.stats()
     assert set(a) == set(b)
     for key in ("strategy", "layout", "transpose", "n", "nnz", "segments",
+                "supernode_count", "mean_block_size", "dense_block_fraction",
                 "permutation_applied", "packed_value_bytes", "packed_index_bytes",
                 "packed_bytes", "pattern_hash", "padded_value_bytes", "n_pad",
                 "refreshable_in_place", "critical_path_flops", "rewrite"):
         assert a[key] == b[key], key
     assert a["backend"] == "cpu"
-    # supernode detection waits for strategy="blocked"
-    assert all(a[k] is None for k in ("supernode_count", "mean_block_size",
-                                      "dense_block_fraction"))
     assert ours.pattern_hash == ref.pattern_hash
     assert ours.dtype == ref.dtype and ours.n == ref.n

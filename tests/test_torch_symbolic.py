@@ -24,20 +24,10 @@ import repro_torch.sparse as tsparse
 from repro_torch.kernels.sptrsv_fused import ops as t_fused_ops
 from repro_torch.kernels.sptrsv_level import ops as t_level_ops
 
-from _torch_parity import MATRICES, assert_same, jax_matrix, port_matrix, to_port
+from _torch_parity import (MATRICES, assert_same, jax_matrix, port_matrix,
+                           systems as _systems, to_port)
 
 NAMES = sorted(MATRICES)
-
-
-def _systems(name, transpose):
-    """(JAX system, port system, JAX levels, port levels) of one direction."""
-    Lj = jax_matrix(name)
-    Lt = to_port(Lj)
-    if transpose:
-        return (Lj.transpose(), Lt.transpose(),
-                j_levels.build_reverse_level_sets(Lj),
-                t_levels.build_reverse_level_sets(Lt))
-    return Lj, Lt, j_levels.build_level_sets(Lj), t_levels.build_level_sets(Lt)
 
 
 def _schedules(name, transpose, coarsen, bucket=0.0):
@@ -124,11 +114,7 @@ def test_analysis_matches(name, transpose):
     sj, st, lj, lt = _systems(name, transpose)
     a = j_analysis.analyze(sj, lj, upper=transpose)
     b = t_analysis.analyze(st, lt, upper=transpose)
-    # supernode detection is not ported (it waits for strategy="blocked")
-    ra, rb = a.report(), b.report()
-    assert set(ra) - set(rb) == {"supernode_count", "mean_block_size",
-                                 "dense_block_fraction"}
-    assert rb == {k: ra[k] for k in rb}
+    assert b.report() == a.report()
     assert_same(b, a)
 
 
