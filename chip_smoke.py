@@ -2,9 +2,10 @@
 """Build and drive the PyTorch/CUDA port of SpTRSV (``src/repro_torch``) on
 one NVIDIA GPU: the level-scheduled and fused solves and the equation
 rewriting at the size of the paper's lung2 (``lung2_like(scale=1.0)``:
-110,258 rows, 493 levels), and the blocked solve on a dense band of the
+110,258 rows, 493 levels), the blocked solve on a dense band of the
 same row count (``banded_lower(110592, bandwidth=24, fill=1.0)``, the JAX
-blocked benchmark's band).
+blocked benchmark's band), and the LM serving path with granite-3-8b at
+full width and depth (40 layers, random weights from a seed).
 
     python3 chip_smoke.py
 
@@ -12,9 +13,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. print the card's name and power limit; build the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` with nvcc, one process per source;
-2. hold each of the eight kernel entry points against its plain torch
+2. hold each of the nine kernel entry points against its plain torch
    version on the same CUDA tensors at the paths' shapes (f32/f64, m in
-   {1, 32});
+   {1, 32}; flash attention in bf16/f32 at granite's prefill shape, a
+   ragged sliding-window case and head dim 256);
 3. the paths, each with the launch counts zeroed just before and read just
    after, every kernel of the path launched:
    a. ``SpTRSV.build_pair`` for ``pallas_level``, ``pallas_level`` +
@@ -32,10 +34,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
       ``scipy.sparse.linalg.spsolve_triangular`` in f64 on the host, and
       ``refresh``;
    small matrices of every path are held against a dense solve first;
+   d. granite-3-8b served by ``ServeEngine`` (4 slots, a 2,048-token cache,
+      8 requests with prompts of 512-2,048 tokens, 16 new tokens each):
+      every request finishes, every logit is finite, and the flash kernel
+      runs once per layer and prefill; then the launcher
+      (``repro_torch.launch.serve.main``) with its defaults, and two
+      full-width layers on the card (bf16, the kernel) against the same
+      weights on the CPU (f32, the plain versions);
 4. CUDA-event times per solve and per kernel (median and range of three
    batches; a solve slower than the batch budget is timed once), beside
    each kernel's bound, its plain version and a library call, and the
-   launches of each kernel in one forward f64 solve.
+   launches of each kernel in one forward f64 solve; for the LM, prefill ms
+   per request, decode ms per step beside its weight-read bound, and the
+   device's busy share of a decode step.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
@@ -78,6 +89,29 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 WIDTHS = (1, 32)
 
+# The LM serving path: granite-3-8b (models/config.py) at full width and
+# depth, served as an engine of 4 slots would serve it.
+LM_ARCH = "granite-3-8b"
+LM_SLOTS, LM_S_CACHE, LM_REQUESTS, LM_MAX_NEW = 4, 2048, 8, 16
+LM_PROMPT_LEN = (512, 2048)          # drawn from a seed, both ends included
+LM_TIMED_PROMPTS = (512, 2048)
+LM_CPU_LAYERS, LM_CPU_PROMPT = 2, 512
+# flash attention against its plain version: both sum in f32, in another
+# order; bf16 outputs may then round one bf16 step apart (2e-2, as the JAX
+# package's tests/test_flash_kernel.py)
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+# (B, S, Hq, Hkv, hd, window) of the phase-2 flash checks; the first is
+# granite's prefill attention at the longest prompt, and is timed
+FLASH_CASES = {"granite prefill": (1, 2048, 32, 8, 128, 0),
+               "ragged window": (2, 200, 4, 4, 64, 128),
+               "hd=256": (1, 300, 4, 1, 256, 0)}
+# prefill logits, card (bf16 weights and activations, the kernel) against
+# the CPU (f32, the plain versions) through two full-width layers: bf16
+# rounding, at the JAX package's bf16 attention tolerance
+LM_CPU_TOL = 2e-2
+# H100 SXM data sheet: dense bf16 tensor-core rate (the attention bound)
+BF16_TENSOR_FLOPS = 989e12
+
 KERNELS = {
     "sptrsv_level": ("src/repro_torch/kernels/csrc/sptrsv_level.cu",
                      "src/repro/kernels/sptrsv_level/lowering_tpu.py:72"),
@@ -95,6 +129,8 @@ KERNELS = {
                          "src/repro/kernels/trsm_block/lowering_tpu.py:41"),
     "trsm_block_apply_batched": ("src/repro_torch/kernels/csrc/trsm_block.cu",
                                  "src/repro/kernels/trsm_block/lowering_tpu.py:41"),
+    "flash_attn": ("src/repro_torch/kernels/csrc/flash_attn.cu",
+                   "src/repro/kernels/flash_attn/kernel.py:91"),
 }
 LEVEL_TAGS = ("pallas_level", "pallas_level+coarsen", "pallas_fused")
 VARIANTS = {"pallas_level": dict(strategy="pallas_level"),
@@ -226,6 +262,202 @@ def block_apply_bound_ms(shapes, m: int, dtype: str) -> tuple[float, str]:
     return bound_ms(nbytes, sum(2 * B * T * T * m for B, T in shapes), dtype)
 
 
+def leaves(tree):
+    """The tensors of a parameter or cache tree (dicts and lists)."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        for item in tree:
+            yield from leaves(item)
+    else:
+        yield tree
+
+
+def tree_to(tree, dev, dtype):
+    """``tree`` on ``dev``: norm scales as they are, every other tensor in
+    ``dtype`` (the port's layout of parameters)."""
+    if isinstance(tree, list):
+        return [tree_to(item, dev, dtype) for item in tree]
+    return {k: tree_to(v, dev, dtype) if isinstance(v, (dict, list))
+            else v.to(dev, v.dtype if k == "scale" else dtype)
+            for k, v in tree.items()}
+
+
+def flash_checks(torch, dev, rng, record, flash_cuda, gqa_attention_ref) -> None:
+    """Phase 2 for flash attention: the kernel against its plain version on
+    the same CUDA tensors, causal, bf16 and f32."""
+    for what, (B, S, Hq, Hkv, hd, window) in FLASH_CASES.items():
+        for dt in ("bfloat16", "float32"):
+            q, k, v = (torch.from_numpy(rng.standard_normal(
+                (B, S, H, hd), dtype=np.float32)).to(dev, getattr(torch, dt))
+                for H in (Hq, Hkv, Hkv))
+            got = flash_cuda.flash_attn(q, k, v, causal=True, window=window)
+            want = gqa_attention_ref(q, k, v, causal=True, window=window)
+            record("flash_attn", dt, got.float(), want.float(),
+                   f"{what} B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} "
+                   f"window={window}", tol=FLASH_TOL[dt])
+
+
+def lm_serve(torch, cfg, model, params, reset_counts, counts):
+    """Phase 3d: ``ServeEngine`` over LM_REQUESTS prompts with the launch
+    counts zeroed just before the run and read just after."""
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    prompt_rng = np.random.default_rng(13)
+    lens = prompt_rng.integers(LM_PROMPT_LEN[0], LM_PROMPT_LEN[1] + 1, LM_REQUESTS)
+    reqs = [Request(i, prompt_rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32),
+                    max_new=LM_MAX_NEW) for i, n in enumerate(lens)]
+    eng = ServeEngine(model, params, batch_slots=LM_SLOTS, s_cache=LM_S_CACHE)
+    finite = []
+
+    def watch(fn):
+        def wrapped(*args):
+            logits, cache = fn(*args)
+            check(logits.shape[-1] == cfg.vocab_pad, f"logits {tuple(logits.shape)}")
+            finite.append(torch.isfinite(logits).all())
+            return logits, cache
+        return wrapped
+
+    eng._prefill = watch(eng._prefill)
+    eng._decode = watch(eng._decode)
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    eng.run(max_steps=10_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    toks = sum(len(r.out) for r in reqs)
+    print(f"phase 3d: ServeEngine({LM_ARCH}, {LM_SLOTS} slots, s_cache="
+          f"{LM_S_CACHE}): prompts {sorted(int(n) for n in lens)}; "
+          f"{sum(r.done for r in reqs)}/{len(reqs)} requests, {toks} tokens, "
+          f"{eng.prefills} prefills, {eng.steps} decode steps in {wall:.2f} s "
+          f"(first request's tokens {reqs[0].out}); launches {json.dumps(launches)}")
+    check(all(r.done and len(r.out) == LM_MAX_NEW + 1 for r in reqs),
+          "a request did not finish with max_new tokens")
+    check(eng.prefills == LM_REQUESTS, f"{eng.prefills} prefills")
+    check(bool(torch.stack(finite).all()), "non-finite logits on the LM path")
+    check(launches["flash_attn"] == cfg.num_layers * eng.prefills,
+          f"flash_attn launched {launches['flash_attn']} times, expected "
+          f"{cfg.num_layers} x {eng.prefills} prefills")
+    return launches
+
+
+def lm_launcher(torch, cfg, reset_counts, counts) -> None:
+    """Phase 3d: the launcher with its own defaults (16 short requests, 4
+    slots, a 128-token cache)."""
+    from repro_torch.launch import serve as launch_serve
+
+    reset_counts()
+    reqs = launch_serve.main(["--arch", LM_ARCH])
+    torch.cuda.synchronize()
+    n = counts()["flash_attn"]
+    check(all(r.done for r in reqs), "launcher: a request did not finish")
+    check(n == cfg.num_layers * len(reqs), f"launcher: flash_attn launched {n} times")
+    print(f"phase 3d: launcher: {len(reqs)} requests done, flash_attn "
+          f"launched {n} times")
+
+
+def lm_cpu_check(torch, dev, cfg, flash_cuda) -> None:
+    """Phase 3d: LM_CPU_LAYERS full-width layers on the card (bf16, the
+    kernel) against the same weights on the CPU (f32, plain versions):
+    prefill logits of one LM_CPU_PROMPT-token prompt."""
+    import dataclasses
+
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    short = dataclasses.replace(cfg, num_layers=LM_CPU_LAYERS)
+    cpu = Model(dataclasses.replace(short, dtype="float32"), device="cpu")
+    p_cpu = cpu.init(torch.Generator().manual_seed(1))
+    card = Model(short, device=dev)
+    p_card = tree_to(p_cpu, dev, torch.bfloat16)
+    toks = torch.from_numpy(np.random.default_rng(14).integers(
+        0, cfg.vocab_size, (1, LM_CPU_PROMPT)))
+    want, _ = cpu.prefill(p_cpu, toks, LM_CPU_PROMPT)
+    before = flash_cuda.launches["flash_attn"]
+    got, cache = card.prefill(p_card, toks.to(dev), LM_CPU_PROMPT)
+    torch.cuda.synchronize()
+    check(flash_cuda.launches["flash_attn"] - before == LM_CPU_LAYERS,
+          "card prefill did not run the flash kernel once per layer")
+    got = got.float().cpu()
+    check(bool(torch.isfinite(got).all()), "card prefill: non-finite logits")
+    err = rel_err(got, want)
+    check(err <= LM_CPU_TOL, f"card vs CPU prefill logits: rel err {err:.3e}")
+    print(f"phase 3d: {LM_CPU_LAYERS} full-width layers, {LM_CPU_PROMPT}-token "
+          f"prompt: card bf16 vs CPU f32 prefill logits max rel err {err:.3e} "
+          f"(tol {LM_CPU_TOL:g}); argmax {int(got.argmax())} vs "
+          f"{int(want.argmax())} ({time.perf_counter() - t0:.1f} s)")
+
+
+def lm_times(torch, dev, rng, cfg, model, params, flash_cuda, gqa_attention_ref):
+    """Phase 4d: the flash kernel at granite's prefill shape beside its
+    bound, its plain version and PyTorch's fused attention; prefill ms per
+    request; decode ms per step beside its weight-read bound; the device's
+    busy share of a decode step.  Returns ``(ms, plain_ms, bound, lib_ms)``
+    of the kernel."""
+    import torch.nn.functional as F
+
+    B, S, Hq, Hkv, hd, _ = FLASH_CASES["granite prefill"]
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, H, hd), dtype=np.float32))
+               .to(dev, torch.bfloat16) for H in (Hq, Hkv, Hkv))
+
+    def sdpa():
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        try:
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+        except TypeError:       # a torch without enable_gqa
+            g = Hq // Hkv
+            return F.scaled_dot_product_attention(
+                qt, kt.repeat_interleave(g, 1), vt.repeat_interleave(g, 1),
+                is_causal=True)
+
+    ms = time_ms(torch, lambda: flash_cuda.flash_attn(q, k, v))
+    plain = time_ms(torch, lambda: gqa_attention_ref(q, k, v))
+    try:
+        lib = time_ms(torch, sdpa)
+        lib_err = rel_err(sdpa().transpose(1, 2).float(),
+                          flash_cuda.flash_attn(q, k, v).float())
+        lib_note = f"{fmt_ms(lib)} (vs kernel rel {lib_err:.2e})"
+        lib_ms = lib[0]
+    except (RuntimeError, NotImplementedError) as err:
+        lib_ms, lib_note = None, f"unavailable: {err}"
+    # live (query, key) pairs of causal attention; two products of hd MACs
+    flops = 4 * hd * Hq * B * (S * (S + 1) // 2)
+    nbytes = 2 * B * S * hd * (2 * Hq + 2 * Hkv)      # q, o, k, v in bf16
+    t_ops, t_bytes = flops / BF16_TENSOR_FLOPS, nbytes / HBM_BYTES_PER_S
+    bound = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+    print(f"phase 4d: kernel flash_attn bf16 B={B} S={S} Hq={Hq} Hkv={Hkv} "
+          f"hd={hd} causal: {fmt_ms(ms)} per launch ({cfg.num_layers} launches "
+          f"per prefill), {flops / ms[0] / 1e9:.1f} TFLOP/s; plain {fmt_ms(plain)}; "
+          f"bound {bound[0]:.6f} ms ({bound[1]}: {flops / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB); scaled_dot_product_attention {lib_note}")
+
+    for n in LM_TIMED_PROMPTS:
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n))).to(dev)
+        t = time_ms(torch, lambda: model.prefill(params, toks, LM_S_CACHE))
+        print(f"phase 4d: prefill {LM_ARCH} S={n}: {fmt_ms(t)} per request "
+              f"({n / t[0] * 1e3:.0f} tokens/s)")
+
+    cache = model.init_cache(LM_SLOTS, LM_S_CACHE)
+    cache["idx"] = LM_S_CACHE // 2
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_SLOTS, 1))).to(dev)
+    t = time_ms(torch, lambda: model.decode_step(params, toks, cache))
+    w_bytes = sum(x.numel() * x.element_size() for x in leaves(params))
+    kv_bytes = (2 * cfg.num_layers * LM_SLOTS * cache["idx"] * cfg.n_kv_heads
+                * cfg.hd * 2)
+    print(f"phase 4d: decode {LM_ARCH} {LM_SLOTS} slots at position "
+          f"~{cache['idx']}: {fmt_ms(t)} per step; weight-read bound "
+          f"{w_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({w_bytes / 1e9:.3f} GB), "
+          f"with the live KV cache {(w_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    print(f"phase 4d: profile decode step {LM_SLOTS} slots: "
+          + device_busy(torch, lambda: model.decode_step(params, toks, cache)))
+    return ms, plain, bound, lib_ms
+
+
 def main() -> int:
     import torch
 
@@ -247,7 +479,10 @@ def main() -> int:
     from repro_torch.core.packed import (build_packed_blocked_layout,
                                          pack_blocked_values, permute_rhs,
                                          segment_steps)
+    from repro_torch.configs import get_config
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attn import cuda as flash_cuda
+    from repro_torch.kernels.flash_attn.ref import gqa_attention_ref
     from repro_torch.kernels.spmv_ell import cuda as spmv_cuda
     from repro_torch.kernels.spmv_ell.ops import device_cols
     from repro_torch.kernels.spmv_ell.ref import spmv_ref
@@ -259,9 +494,10 @@ def main() -> int:
     from repro_torch.kernels.sptrsv_level.ref import level_walk_ref
     from repro_torch.kernels.trsm_block import cuda as trsm_cuda
     from repro_torch.kernels.trsm_block.ref import block_apply_ref
+    from repro_torch.models.model import Model
     from repro_torch.sparse import banded_lower, lung2_like, refresh_values
 
-    counters = (level_cuda, fused_cuda, spmv_cuda, trsm_cuda)
+    counters = (level_cuda, fused_cuda, spmv_cuda, trsm_cuda, flash_cuda)
 
     def reset_counts() -> None:
         for mod in counters:
@@ -353,15 +589,16 @@ def main() -> int:
     rng = np.random.default_rng(0)
     kernel_err = {}
 
-    def record(name, dt, got, want, what):
+    def record(name, dt, got, want, what, tol=None):
+        tol = KERNEL_TOL[dt] if tol is None else tol
         torch.cuda.synchronize()
         err = rel_err(got, want)
         check(torch.isfinite(got).all().item(), f"{name} {dt} {what}: non-finite")
-        check(err <= KERNEL_TOL[dt], f"{name} {dt} {what}: rel err {err:.3e}")
+        check(err <= tol, f"{name} {dt} {what}: rel err {err:.3e}")
         kernel_err[name, dt] = max(kernel_err.get((name, dt), 0.0),
                                    float((got - want).abs().max()))
         print(f"phase 2: {name:24s} {dt} {what}: max rel err {err:.3e} "
-              f"(tol {KERNEL_TOL[dt]:g})")
+              f"(tol {tol:g})")
 
     def randn(shape, tdt):
         return torch.from_numpy(rng.standard_normal(shape)).to(dev, tdt)
@@ -438,6 +675,8 @@ def main() -> int:
                        dt, trsm_cuda.block_apply(dinv, rhs),
                        block_apply_ref(dinv, rhs),
                        f"m={m:2d} {what} B={B_} T={T_}")
+
+    flash_checks(torch, dev, rng, record, flash_cuda, gqa_attention_ref)
 
     # -- phase 3: the paths -----------------------------------------------
     small = lung2_like(scale=0.02, fat_levels=4, seed=3)
@@ -630,6 +869,24 @@ def main() -> int:
                  "trsm_block_apply_batched"):
         check(path_launches["blocked"][name] > 0,
               f"{name} never launched on the blocked path")
+
+    # 3d: the LM serving path at granite-3-8b's full width and depth
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"phase 3d: {LM_ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size} (padded {cfg.vocab_pad}): "
+          f"{sum(x.numel() * x.element_size() for x in leaves(params)) / 1e9:.3f} GB "
+          f"of parameters on the card, random from seed 0, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    path_launches["lm"] = lm_serve(torch, cfg, model, params, reset_counts,
+                                   counts)
+    lm_cpu_check(torch, dev, cfg, flash_cuda)
+    print(f"phase 3d: LM path in {time.perf_counter() - t0:.1f} s")
     main_launches = {name: sum(p[name] for p in path_launches.values())
                      for name in KERNELS}
     for name in KERNELS:
@@ -637,6 +894,7 @@ def main() -> int:
 
     # launches of each kernel in one forward f64 solve, per strategy
     per_solve = {name: {} for name in KERNELS}
+    per_solve["flash_attn"] = {"prefill": cfg.num_layers}
     cases = [(tag, solvers[tag, "float64"][0]) for tag in LEVEL_TAGS]
     cases += [(f"rewrite:{tag}", rw_solvers[tag, "float64"][0]) for tag in VARIANTS]
     cases += [("blocked", blk_solvers["float64"][0])]
@@ -797,6 +1055,21 @@ def main() -> int:
               f"plain {fmt_ms(time_ms(torch, lambda: block_apply_ref(dsyn, rsyn)))}, "
               f"torch.bmm {fmt_ms(time_ms(torch, lambda: torch.bmm(dsyn, rsyn3)))}, "
               f"bound {bnd[0]:.6f} ms ({bnd[1]})")
+    t0 = time.perf_counter()
+    ms, plain, bound, lib_ms = lm_times(torch, dev, rng, cfg, model, params,
+                                        flash_cuda, gqa_attention_ref)
+    report.append({
+        "name": "flash_attn", "route": "cuda", "source": KERNELS["flash_attn"][0],
+        "replaces": KERNELS["flash_attn"][1],
+        "launches": main_launches["flash_attn"],
+        "launches_per_solve": per_solve["flash_attn"],
+        "max_abs_err": kernel_err["flash_attn", "bfloat16"], "ms": ms[0],
+        "ms_min_max": [ms[1], ms[2]], "plain_ms": plain[0],
+        "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib_ms})
+    del model, params
+    torch.cuda.empty_cache()
+    lm_launcher(torch, cfg, reset_counts, counts)
+    print(f"phase 4d: LM times and launcher in {time.perf_counter() - t0:.1f} s")
     report.sort(key=lambda r: list(KERNELS).index(r["name"]))
 
     print(f"run: {time.perf_counter() - t_start:.1f} s after the card check")

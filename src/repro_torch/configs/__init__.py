@@ -1,0 +1,15 @@
+"""Per-architecture configs of the port.
+
+``get("<arch-id>")`` accepts the public dashed id (e.g. "granite-3-8b").
+Every id of the JAX package is listed; the port serves the dense,
+attention-only ones (:mod:`repro_torch.models.model`).
+"""
+from repro_torch.models.config import ARCHS, get_config, smoke_config
+
+ARCH_IDS = tuple(ARCHS)
+
+__all__ = ["ARCHS", "ARCH_IDS", "get", "get_config", "smoke_config"]
+
+
+def get(name: str):
+    return get_config(name)

@@ -7,6 +7,8 @@ versions.
 * ``spmv_ell``      — ELL SpMV ``y = M v``: the rewrite's ``b' = E b`` and
                       the blocked solve's panel update
 * ``trsm_block``    — the blocked solve's batched dense ``Dinv @ rhs``
+* ``flash_attn``    — causal / sliding-window attention with the online
+                      softmax: the LM's prefill attention
 
 Each package: ``ops.py`` (the wrapper a solve calls: the kernel for CUDA
 tensors, the plain version for CPU tensors), ``cuda.py`` (ctypes binding,

@@ -28,7 +28,8 @@ __all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"sptrsv_level": "sptrsv_level.cu", "sptrsv_fused": "sptrsv_fused.cu",
-           "spmv_ell": "spmv_ell.cu", "trsm_block": "trsm_block.cu"}
+           "spmv_ell": "spmv_ell.cu", "trsm_block": "trsm_block.cu",
+           "flash_attn": "flash_attn.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

@@ -1,7 +1,8 @@
 """The CUDA kernels on the card: each held against its plain torch version
 on the same CUDA tensors; the solver's kernel strategies, with and without
-equation rewriting, against the plain ``levelset`` executor; and the
-blocked solve against a dense solve.  Marked ``cuda``: they skip where no GPU is
+equation rewriting, against the plain ``levelset`` executor; the
+blocked solve against a dense solve; and the LM's prefill on the card
+against the same model on the CPU.  Marked ``cuda``: they skip where no GPU is
 visible, and run on a machine with one via
 
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
@@ -18,6 +19,8 @@ from repro_torch.core.codegen import build_ell, build_schedule
 from repro_torch.core.levels import build_level_sets
 from repro_torch.core.packed import segment_steps
 from repro_torch.core.rewrite import rewrite_matrix
+from repro_torch.kernels.flash_attn import cuda as flash_cuda
+from repro_torch.kernels.flash_attn.ref import attention_ref, gqa_attention_ref
 from repro_torch.kernels.spmv_ell import cuda as spmv_cuda
 from repro_torch.kernels.spmv_ell.ops import device_cols
 from repro_torch.kernels.spmv_ell.ref import spmv_ref
@@ -29,10 +32,16 @@ from repro_torch.kernels.sptrsv_level.ops import make_packed_solver
 from repro_torch.kernels.sptrsv_level.ref import level_walk_ref
 from repro_torch.kernels.trsm_block import cuda as trsm_cuda
 from repro_torch.kernels.trsm_block.ref import block_apply_ref
+from repro_torch.configs import smoke_config
+from repro_torch.models.model import Model
 from repro_torch.sparse import banded_lower, lung2_like
 
 # |kernel - plain| / max |plain|: nvcc contracts to FMA, bits may differ
 KERNEL_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+# flash attention, max |kernel - plain| / max |plain|: both sum in f32 in
+# another order; bf16 outputs may then round one bf16 step apart (the JAX
+# package's tests/test_flash_kernel.py uses 2e-2 for bf16)
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 pytestmark = pytest.mark.cuda
 
@@ -167,3 +176,70 @@ def test_blocked_solver_on_card_matches_dense(card):
             x = s.solve(torch.from_numpy(rhs).to(card)).cpu().numpy()
             np.testing.assert_allclose(x, np.linalg.solve(A, rhs),
                                        rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd,causal,window", [
+    (1, 512, 8, 2, 128, True, 0),      # granite-like GQA, 8 tiles
+    (2, 200, 4, 4, 64, True, 128),     # ragged S, sliding window
+    (1, 130, 2, 1, 256, True, 0),      # widest head dim, ragged
+    (1, 96, 2, 2, 40, False, 0),       # no mask, odd head dim
+], ids=["granite", "ragged-window", "hd256", "full-hd40"])
+def test_flash_kernel_matches_plain(card, dtype, B, S, Hq, Hkv, hd, causal, window):
+    g = torch.Generator().manual_seed(7)
+    q, k, v = (torch.randn((B, S, H, hd), generator=g).to(card, dtype)
+               for H in (Hq, Hkv, Hkv))
+    before = flash_cuda.launches["flash_attn"]
+    got = flash_cuda.flash_attn(q, k, v, causal=causal, window=window)
+    want = gqa_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_cuda.launches["flash_attn"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert _rel(got.float(), want.float()) <= FLASH_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_valid_len(card, dtype):
+    g = torch.Generator().manual_seed(8)
+    q, k, v = (torch.randn((3, 256, 1, 64), generator=g).to(card, dtype)
+               for _ in range(3))
+    got = flash_cuda.flash_attn(q, k, v, causal=True, valid_len=150)
+    want = attention_ref(q[:, :, 0], k[:, :, 0], v[:, :, 0], 150, causal=True)
+    assert _rel(got[:, :, 0].float(), want.float()) <= FLASH_TOL[dtype]
+
+
+def test_flash_kernel_rejects_bad_inputs(card):
+    q = torch.zeros((1, 64, 4, 64), device=card)
+    with pytest.raises(ValueError):
+        flash_cuda.flash_attn(q, q[:, :, :3].contiguous(), q[:, :, :3].contiguous())
+    with pytest.raises(ValueError):
+        flash_cuda.flash_attn(q, q.double(), q.double())
+    wide = torch.zeros((1, 8, 1, 320), device=card)
+    with pytest.raises(ValueError):
+        flash_cuda.flash_attn(wide, wide, wide)
+
+
+def test_lm_prefill_on_card_matches_cpu(card):
+    """Smoke granite-3-8b: prefill and two decode steps on the card (the
+    flash kernel) against the CPU (its plain version), same f32 weights and
+    tokens.  Tolerance 1e-3: the KV cache is bf16 in both, and an f32
+    difference of one rounding step can round a cached key one bf16 step
+    apart."""
+    cfg = smoke_config("granite-3-8b")
+    rng = np.random.default_rng(9)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 40))).int()
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 2, 1))).int()
+    out = {}
+    for dev in (torch.device("cpu"), card):
+        model = Model(cfg, device=dev)
+        params = model.init(torch.Generator().manual_seed(0))
+        before = flash_cuda.launches["flash_attn"]
+        logits, cache = model.prefill(params, toks.to(dev), 64)
+        steps = [logits]
+        for t in nxt:
+            logits, cache = model.decode_step(params, t.to(dev), cache)
+            steps.append(logits)
+        if dev.type == "cuda":
+            assert flash_cuda.launches["flash_attn"] - before == cfg.num_layers
+        out[dev.type] = torch.cat([t.float().cpu() for t in steps], 1)
+    assert _rel(out["cuda"], out["cpu"]) <= 1e-3

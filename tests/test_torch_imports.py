@@ -16,7 +16,11 @@ CHECK = (
     "import repro_torch, repro_torch.core, repro_torch.sparse, "
     "repro_torch.kernels.build, repro_torch.kernels.sptrsv_level.ops, "
     "repro_torch.kernels.sptrsv_fused.ops, repro_torch.kernels.spmv_ell.ops, "
-    "repro_torch.kernels.trsm_block.ops, repro_torch.core.rewrite, sys; "
+    "repro_torch.kernels.trsm_block.ops, repro_torch.core.rewrite, "
+    "repro_torch.kernels.flash_attn.ops, repro_torch.models, "
+    "repro_torch.models.convert, repro_torch.configs, "
+    "repro_torch.configs.granite_3_8b, repro_torch.serve, "
+    "repro_torch.launch.serve, sys; "
     "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
     "or m.startswith(('jax.', 'repro.'))]; "
     "assert not bad, bad"

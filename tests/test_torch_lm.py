@@ -1,0 +1,260 @@
+"""The port's LM serving path against the JAX package's, at
+``smoke_config("granite-3-8b")`` (2 layers, d_model 64, 4 query / 2 KV
+heads of 16, vocab 256): the copied configs, the layers, ``prefill`` (last
+logits and the K/V written to the cache), several ``decode_step``s, the
+``ServeEngine`` token streams and logits, and the launcher.  The JAX
+model's parameters are carried over with ``repro_torch.models.convert``;
+the port runs on the CPU, i.e. the flash kernel's plain version.
+
+Tolerances, as max |port - jax| <= tol * max |jax| (``_rel``): f32 1e-5
+(the same f32 arithmetic summed in another order); bf16 (``dtype=
+"bfloat16"``) 2e-2, since the two frameworks round bf16 products and
+activations at different points.  The KV cache is bf16 in both variants
+(``kv_cache_dtype`` stays bf16 in the smoke config), so an f32 key that
+differs by one rounding step can round one bf16 step apart: the cache's
+contents are compared at 4e-3 in f32, one bf16 step (2^-8) of the largest
+entry."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import smoke_config as jax_smoke_config
+from repro.models import config as jax_config
+from repro.models import layers as jl
+from repro.models.model import Model as JaxModel
+from repro.serve.engine import Request as JaxRequest
+from repro.serve.engine import ServeEngine as JaxServeEngine
+from repro_torch.configs import ARCH_IDS, get, smoke_config
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import config as port_config
+from repro_torch.models import layers as pl
+from repro_torch.models.convert import from_jax
+from repro_torch.models.model import Model
+from repro_torch.serve.engine import Request, ServeEngine
+
+ARCH = "granite-3-8b"
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+CACHE_TOL = {"float32": 4e-3, "bfloat16": 2e-2}
+
+
+def _rel(got, want) -> float:
+    got = got.float().numpy() if torch.is_tensor(got) else np.asarray(got, np.float32)
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _cfg(dtype):
+    return dataclasses.replace(smoke_config(ARCH), dtype=dtype)
+
+
+def _pair(dtype, seed=0):
+    """The JAX model and its parameters, and the port's model on the CPU
+    with the same parameters."""
+    cfg = _cfg(dtype)
+    jm = JaxModel(dataclasses.replace(jax_smoke_config(ARCH), dtype=dtype), remat=False)
+    jp = jm.init(jax.random.key(seed))
+    pm = Model(cfg, device="cpu")
+    return jm, jp, pm, from_jax(jax.tree.map(np.asarray, jp), cfg)
+
+
+def _tokens(seed, shape, vocab):
+    return np.random.default_rng(seed).integers(0, vocab, shape).astype(np.int32)
+
+
+# --------------------------------------------------------------------------
+# configs
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", sorted(jax_config.ARCHS))
+def test_config_copy_matches_jax(arch):
+    assert arch in ARCH_IDS
+    assert dataclasses.asdict(get(arch)) == dataclasses.asdict(jax_config.get_config(arch))
+    assert (dataclasses.asdict(port_config.smoke_config(arch))
+            == dataclasses.asdict(jax_config.smoke_config(arch)))
+    assert get(arch).params_B() == jax_config.get_config(arch).params_B()
+
+
+@pytest.mark.parametrize("arch", sorted(set(jax_config.ARCHS) - {ARCH}))
+def test_unported_archs_raise(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        Model(smoke_config(arch), device="cpu")
+
+
+def test_full_granite_on_meta_has_params_B():
+    cfg = get(ARCH)
+    params = Model(cfg, device="meta").init()
+    counted = 0
+
+    def walk(tree):
+        nonlocal counted
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                walk(val)
+            elif key != "scale":          # params_B counts no norm scales
+                counted += val.numel()
+                assert val.dtype == torch.bfloat16, key
+
+    walk(params["embed"])
+    for layer in params["layers"]:
+        walk(layer)
+    assert len(params["layers"]) == 40
+    assert params["final_ln"]["scale"].dtype == torch.float32
+    # the table is padded to vocab_pad rows; params_B counts vocab_size
+    counted -= (cfg.vocab_pad - cfg.vocab_size) * cfg.d_model
+    assert counted == round(cfg.params_B() * 1e9) == 8_170_516_480
+
+
+# --------------------------------------------------------------------------
+# layers
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_norm_rope_embed_match_jax(dtype):
+    _, jp, _, pp = _pair(dtype)
+    cfg = _cfg(dtype)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 9, cfg.d_model)).astype(np.float32)
+    scale = rng.standard_normal(cfg.d_model).astype(np.float32)
+    got = pl.rms_norm({"scale": torch.from_numpy(scale)}, torch.from_numpy(x).to(tdt))
+    want = jl.rms_norm({"scale": jnp.asarray(scale)}, jnp.asarray(x, jdt))
+    assert _rel(got, want) <= TOL[dtype]
+    h = rng.standard_normal((2, 9, 3, cfg.hd)).astype(np.float32)
+    pos = np.tile(np.arange(5, 14), (2, 1))
+    got = pl.apply_rope(torch.from_numpy(h).to(tdt), torch.from_numpy(pos),
+                        pl.RopeSpec(cfg.hd, cfg.rope_theta))
+    want = jl.apply_rope(jnp.asarray(h, jdt), jnp.asarray(pos),
+                         jl.RopeSpec(cfg.hd, cfg.rope_theta))
+    assert _rel(got, want) <= TOL[dtype]
+    toks = _tokens(2, (2, 9), cfg.vocab_size)
+    got = pl.embed_apply(pp["embed"], cfg, torch.from_numpy(toks), tdt)
+    want = jl.embed_apply(jp["embed"], cfg, jnp.asarray(toks), jdt)
+    assert _rel(got, want) == 0.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind,window", [("causal", 0), ("window", 24)])
+def test_flash_attention_matches_model_flash(kind, window, dtype):
+    """The layer's flash attention (the kernel's plain version here) against
+    the JAX model's scan-based flash attention, GQA, ragged S."""
+    rng = np.random.default_rng(3)
+    shapes = [(2, 100, 4, 16), (2, 100, 2, 16), (2, 100, 2, 16)]
+    arrs = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    got = pl.flash_attention(*(torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs),
+                             kind=kind, window=window)
+    want = jl.flash_attention(*(jnp.asarray(a, getattr(jnp, dtype)) for a in arrs),
+                              kind=kind, window=window, block_q=32, block_k=32)
+    assert _rel(got, want) <= TOL[dtype]
+
+
+def test_unported_attention_options_raise():
+    q = torch.zeros((1, 8, 2, 16))
+    for kind in ("full", "prefix"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+            pl.flash_attention(q, q, q, kind=kind)
+    with pytest.raises(NotImplementedError, match="softcap"):
+        pl.flash_attention(q, q, q, softcap_val=30.0)
+    with pytest.raises(NotImplementedError, match="checkpoints"):
+        launch_serve.main(["--smoke", "--device", "cpu", "--ckpt", "somewhere"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_matches_jax(dtype):
+    rng = np.random.default_rng(4)
+    q = rng.standard_normal((3, 1, 4, 16)).astype(np.float32)
+    kc, vc = (rng.standard_normal((3, 20, 2, 16)).astype(np.float32) for _ in range(2))
+    tq = torch.from_numpy(q).to(getattr(torch, dtype))
+    tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (kc, vc))
+    jq = jnp.asarray(q, getattr(jnp, dtype))
+    jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (kc, vc))
+    for cur in (1, 13, 20):
+        got = pl.decode_attention(tq, tk, tv, cur)
+        assert _rel(got, jl.decode_attention(jq, jk, jv, jnp.asarray(cur))) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_and_mlp_blocks_match_jax(dtype):
+    _, jp, _, pp = _pair(dtype)
+    cfg = _cfg(dtype)
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 50, cfg.d_model)).astype(np.float32)
+    pos = np.tile(np.arange(50), (2, 1))
+    jblock = jax.tree.map(lambda a: a[1], jp["blocks"]["p0"])   # layer 1
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    jx = jnp.asarray(x, getattr(jnp, dtype))
+    got = pl.attention_apply(pp["layers"][1]["mix"], cfg, tx, torch.from_numpy(pos))
+    want = jl.attention_apply(jblock["mix"], cfg, jx, jnp.asarray(pos))
+    assert got.dtype == tx.dtype and _rel(got, want) <= TOL[dtype]
+    got = pl.mlp_apply(pp["layers"][1]["ffn"], tx)
+    assert _rel(got, jl.mlp_apply(jblock["ffn"], jx)) <= TOL[dtype]
+
+
+# --------------------------------------------------------------------------
+# the model
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,s_cache", [(37, 64), (80, 64)], ids=["fits", "longer-than-cache"])
+def test_prefill_and_decode_match_jax(S, s_cache, dtype):
+    jm, jp, pm, pp = _pair(dtype)
+    toks = _tokens(6, (2, S), 256)
+    got, cache = pm.prefill(pp, torch.from_numpy(toks), s_cache)
+    want, jcache = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, s_cache)
+    assert got.shape == want.shape == (2, 1, 256)
+    assert _rel(got, want) <= TOL[dtype]
+    assert cache["idx"] == int(jcache["idx"]) == S
+    for i, slot in enumerate(cache["layers"]):
+        for name in ("k", "v"):
+            jkv = jcache["blocks"]["p0"]["attn"][name][i]
+            assert slot[name].dtype == torch.bfloat16
+            assert _rel(slot[name], jkv) <= CACHE_TOL[dtype]
+    nxt = _tokens(7, (4, 2, 1), 256)
+    for t in nxt:
+        got, cache = pm.decode_step(pp, torch.from_numpy(t), cache)
+        want, jcache = jm.decode_step(jp, jnp.asarray(t), jcache)
+        assert _rel(got, want) <= TOL[dtype]
+    assert cache["idx"] == int(jcache["idx"]) == S + len(nxt)
+
+
+def _run_engine(engine_cls, request_cls, model, params, prompts):
+    eng = engine_cls(model, params, batch_slots=2, s_cache=64)
+    logits = []
+
+    def record(fn):
+        def wrapped(*args):
+            out = fn(*args)
+            logits.append(np.asarray(out[0] if not torch.is_tensor(out[0])
+                                     else out[0].float().numpy(), np.float32))
+            return out
+        return wrapped
+
+    eng._prefill = record(eng._prefill)
+    eng._decode = record(eng._decode)
+    reqs = [request_cls(i, p, max_new=4) for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run(max_steps=200)
+    return reqs, logits, eng
+
+
+def test_serve_engine_matches_jax_engine():
+    jm, jp, pm, pp = _pair("float32")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 256, (n,)).astype(np.int32) for n in (5, 9, 3)]
+    jreqs, jlogits, jeng = _run_engine(JaxServeEngine, JaxRequest, jm, jp, prompts)
+    preqs, plogits, peng = _run_engine(ServeEngine, Request, pm, pp, prompts)
+    assert all(r.done for r in preqs) and all(len(r.out) == 5 for r in preqs)
+    assert [r.out for r in preqs] == [r.out for r in jreqs]
+    assert peng.steps == jeng.steps and peng.prefills == 3
+    assert len(plogits) == len(jlogits)
+    for got, want in zip(plogits, jlogits):
+        assert got.shape == want.shape
+        assert _rel(got, want) <= TOL["float32"]
+
+
+def test_launcher_smoke_on_cpu(capsys):
+    reqs = launch_serve.main(["--smoke", "--device", "cpu", "--requests", "5",
+                              "--max-new", "3"])
+    assert all(r.done and len(r.out) == 4 for r in reqs)
+    assert "[serve] 5/5 requests, 20 tokens" in capsys.readouterr().out
