@@ -13,16 +13,20 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. print the card's name and power limit; build the CUDA kernels from
    ``src/repro_torch/kernels/csrc`` with nvcc, one process per source;
+   count the tensor-core (``HMMA``) instructions in the flash library's
+   SASS, which must not be 0;
 2. hold each of the nine kernel entry points against its plain torch
    version on the same CUDA tensors at the paths' shapes (f32/f64, m in
-   {1, 32}; flash attention in bf16/f32 at granite's prefill shape, a
-   ragged sliding-window case and head dim 256);
+   {1, 32}, the batched fused solve also on a 1,000-row chain, one span
+   per row; flash attention in bf16/f32 at granite's prefill shape, a
+   ragged sliding-window case and each head-dim template 64/128/256);
 3. the paths, each with the launch counts zeroed just before and read just
    after, every kernel of the path launched:
    a. ``SpTRSV.build_pair`` for ``pallas_level``, ``pallas_level`` +
       coarsening and ``pallas_fused`` in f32 and f64, one RHS and a batch
-      of 32, forward and transpose (the transpose ``pallas_fused`` batch
-      left out here and in b: ~11 s per solve): componentwise backward
+      of 32, forward and transpose (a transpose ``pallas_fused`` batch, ELL
+      width 1,975, runs here, in b and in 4 only if its first solve takes
+      under TRANSPOSE_FUSED_MAX_S): componentwise backward
       error against the factor, agreement with the plain torch
       ``levelset`` executor, then ``refresh`` and solve again;
    b. the same strategies and ``levelset`` with
@@ -55,6 +59,7 @@ GPU is visible or the port's sources are missing.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -101,10 +106,20 @@ LM_CPU_LAYERS, LM_CPU_PROMPT = 2, 512
 # package's tests/test_flash_kernel.py)
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 # (B, S, Hq, Hkv, hd, window) of the phase-2 flash checks; the first is
-# granite's prefill attention at the longest prompt, and is timed
+# granite's prefill attention at the longest prompt, and is timed; the
+# bf16 kernel has a template per head dim 64 / 128 / 256
 FLASH_CASES = {"granite prefill": (1, 2048, 32, 8, 128, 0),
                "ragged window": (2, 200, 4, 4, 64, 128),
-               "hd=256": (1, 300, 4, 1, 256, 0)}
+               "hd=256": (1, 300, 4, 1, 256, 0),
+               "hd=64 GQA 8:1": (2, 1000, 8, 1, 64, 0),
+               "hd=128 ragged": (2, 65, 4, 4, 128, 0),
+               "hd=256 long": (1, 2048, 8, 2, 256, 0)}
+# the batched fused solve on a chain (one row per span, so one grid
+# barrier per row) in phase 2
+CHAIN_N = 1000
+# a transpose pallas_fused batch whose first solve takes longer stays out
+# of the paths and the timings
+TRANSPOSE_FUSED_MAX_S = 5.0
 # prefill logits, card (bf16 weights and activations, the kernel) against
 # the CPU (f32, the plain versions) through two full-width layers: bf16
 # rounding, at the JAX package's bf16 attention tolerance
@@ -183,6 +198,21 @@ def time_ms(torch, fn, *, warm: bool = True, budget_ms: float = 200.0,
     reps = int(max(1, min(max_reps, budget_ms // max(first, 1e-3))))
     per = sorted(batch(reps) for _ in range(samples))
     return per[len(per) // 2], per[0], per[-1]
+
+
+def sass_hmma(lib: Path) -> dict:
+    """``HMMA`` (tensor-core) instructions per kernel function in the SASS
+    of a built library, read with the toolkit's ``cuobjdump``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif "HMMA" in line and fn is not None:
+            counts[fn] = counts.get(fn, 0) + 1
+    return counts
 
 
 def fmt_ms(t: tuple[float, float, float]) -> str:
@@ -475,7 +505,8 @@ def main() -> int:
 
     from repro_torch.core import RewriteConfig, SpTRSV
     from repro_torch.core.coarsen import coarsen_schedule
-    from repro_torch.core.codegen import build_ell
+    from repro_torch.core.codegen import build_ell, build_schedule
+    from repro_torch.core.levels import build_level_sets
     from repro_torch.core.packed import (build_packed_blocked_layout,
                                          pack_blocked_values, permute_rhs,
                                          segment_steps)
@@ -495,7 +526,8 @@ def main() -> int:
     from repro_torch.kernels.trsm_block import cuda as trsm_cuda
     from repro_torch.kernels.trsm_block.ref import block_apply_ref
     from repro_torch.models.model import Model
-    from repro_torch.sparse import banded_lower, lung2_like, refresh_values
+    from repro_torch.sparse import (banded_lower, chain_matrix, lung2_like,
+                                    refresh_values)
 
     counters = (level_cuda, fused_cuda, spmv_cuda, trsm_cuda, flash_cuda)
 
@@ -530,6 +562,10 @@ def main() -> int:
         for line in (log.read_text().splitlines() if log.exists() else []):
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    hmma = sass_hmma(paths["flash_attn"])
+    print(f"phase 1: HMMA instructions in the flash library's SASS: "
+          f"{sum(hmma.values())} ({json.dumps(hmma)})")
+    check(sum(hmma.values()) > 0, "the flash kernel has no tensor-core instruction")
 
     t0 = time.perf_counter()
     L64 = lung2_like(scale=LUNG2_SCALE, seed=0)
@@ -639,7 +675,25 @@ def main() -> int:
             xr = fused_solve_ref(bl, fcols, fvals, fdiag, chunk=flay.chunk)
             record("sptrsv_fused" if m == 1 else "sptrsv_fused_batched", dt,
                    xk, xr, f"m={m:2d} whole layout n_pad={flay.n_pad} "
-                   f"spans={len(flay.spans)}")
+                   f"spans={len(flay.spans)}"
+                   + ("" if m == 1 else f", grid {fused_cuda.batched_grid(tdt)} blocks"))
+        # the batched fused solve on a chain: one span, so one grid barrier,
+        # per row
+        chain = chain_matrix(CHAIN_N, dtype=np.dtype(dt))
+        clay = build_layout(build_schedule(chain, build_level_sets(chain)))
+        ccols, cvals, cdiag = (torch.from_numpy(a).to(dev)
+                               for a in (clay.cols, clay.vals, clay.diag))
+        cspans = torch.tensor(clay.spans, dtype=torch.int32, device=dev)
+        bl = randn((clay.n_pad, WIDTHS[-1]), tdt)
+        record("sptrsv_fused_batched", dt,
+               fused_cuda.fused_solve(bl, ccols, cvals, cdiag, cspans),
+               fused_solve_ref(bl, ccols, cvals, cdiag, chunk=clay.chunk),
+               f"m={WIDTHS[-1]} chain n={chain.n} n_pad={clay.n_pad} "
+               f"spans={len(clay.spans)}")
+        t = time_ms(torch, lambda: fused_cuda.fused_solve(bl, ccols, cvals, cdiag, cspans))
+        print(f"phase 2: sptrsv_fused_batched {dt} chain: {fmt_ms(t)} per solve, "
+              f"{t[0] / len(clay.spans) * 1e3:.3f} us per span (a grid barrier "
+              "and one dependent row)")
 
         # the SpMV on the forward rewrite's E and on one panel of the band
         E = rw_solvers["levelset", dt][0].rewrite_result.E
@@ -698,11 +752,30 @@ def main() -> int:
 
     path_launches = {}
 
-    # The transpose pallas_fused batch is left out of every path and timing:
-    # the lung2 transpose's ELL width of 1,975 makes it ~11 s per solve, and
-    # the transpose rewrite (2 rows of 110,258 changed) keeps that width.
+    # A transpose pallas_fused batch (the lung2 transpose's ELL width of
+    # 1,975, which the transpose rewrite keeps) joins the paths and timings
+    # only if its first solve takes under TRANSPOSE_FUSED_MAX_S.
+    fast_transpose = set()
+    for group in (solvers, rw_solvers):
+        for dt in mats:
+            s = group["pallas_fused", dt][1]
+            b = torch.from_numpy(rng.standard_normal((s.n, WIDTHS[-1]))).to(
+                dev, getattr(torch, dt))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.solve(b)
+            torch.cuda.synchronize()
+            took = time.perf_counter() - t0
+            if took < TRANSPOSE_FUSED_MAX_S:
+                fast_transpose.add(id(s))
+            print(f"phase 3: first transpose {'rewrite:' if group is rw_solvers else ''}"
+                  f"pallas_fused {dt} m={WIDTHS[-1]} solve: {took:.4f} s ("
+                  + ("runs on the paths" if took < TRANSPOSE_FUSED_MAX_S else
+                     f"left out: over {TRANSPOSE_FUSED_MAX_S} s") + ")")
+
     def runs(tag, s, m):
-        return not (tag == "pallas_fused" and s.transpose and m > 1)
+        return (not (tag == "pallas_fused" and s.transpose and m > 1)
+                or id(s) in fast_transpose)
 
     # 3a: the level-scheduled and fused solves
     reset_counts()
@@ -1021,6 +1094,11 @@ def main() -> int:
                 x, bhat, cols, vals0[0], vals0[1], steps)),
             time_ms(torch, lambda: level_walk_ref(
                 x, bhat, cols, vals0[0], vals0[1], steps)), bound, lib_ms)
+        if m > 1:
+            print(f"phase 4: sptrsv_fused_batched: one cooperative launch of "
+                  f"{fused_cuda.batched_grid(tdt)} blocks x 1024 threads on "
+                  f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs, "
+                  f"{len(flay.spans) - 1} grid barriers per solve")
         row("sptrsv_fused" if m == 1 else "sptrsv_fused_batched",
             time_ms(torch, lambda: fused_cuda.fused_solve(bl, fcols, fvals, fdiag, spans)),
             time_ms(torch, lambda: fused_solve_ref(bl, fcols, fvals, fdiag,

@@ -1,6 +1,7 @@
-"""ctypes wrapper of the CUDA flash-attention kernel (``csrc/flash_attn.cu``).
+"""ctypes wrapper of the CUDA flash-attention kernels (``csrc/flash_attn.cu``).
 
-:func:`flash_attn` launches the kernel once per call and counts it in
+:func:`flash_attn` launches one kernel per call, on tensor cores
+(``mma.sync``) for bf16 and as scalar f32 FMAs for f32, and counts it in
 :data:`launches` under ``flash_attn``.
 """
 from __future__ import annotations
@@ -58,8 +59,10 @@ def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
     if not 1 <= hd <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {hd} outside [1, {MAX_HEAD_DIM}]")
-    if B * Hq > 65535:
-        raise ValueError(f"B * Hq = {B * Hq} exceeds the grid's 65535")
+    if dt == torch.float32 and B * Hq > 65535:
+        raise ValueError(f"B * Hq = {B * Hq} exceeds the f32 grid's 65535")
+    if -(-Sq // 64) > 65535:
+        raise ValueError(f"Sq = {Sq} needs more than 65535 query tiles")
     valid_len = Sk if valid_len is None else int(valid_len)
     if not 0 <= valid_len <= Sk:
         raise ValueError(f"valid_len {valid_len} outside [0, {Sk}]")

@@ -4,7 +4,8 @@
 :func:`build_layout` packs a :class:`Schedule` into the level-order permuted
 ELL layout with chunk-aligned wavefront ``spans`` (array for array the JAX
 package's fused layout).  :func:`fused_solve` runs the whole solve: the
-one-block CUDA kernel for tensors on the card, the plain chunk walk for
+CUDA kernel for tensors on the card (one block for a single RHS, a
+cooperative grid over every SM for a batch), the plain chunk walk for
 tensors on the CPU.
 
 Direction-agnostic: backward (transpose) schedules permute rows by reverse

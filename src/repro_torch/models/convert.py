@@ -5,13 +5,15 @@ a leading ``reps`` axis (``params["blocks"]["p<pos>"]``) with the pattern's
 remainder in ``params["tail"]``.  :func:`from_jax` takes that pytree as
 numpy arrays (``jax.tree.map(np.asarray, params)``) and returns the port's
 parameters: one entry per layer, in layer order, weights in the compute
-dtype and norm scales in f32, on ``device``.
+dtype and norm scales in f32, on ``device`` (the card unless the caller
+asks for ``"cpu"``, as every entry point of the port).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..kernels.backend import resolve_device
 from .config import ModelConfig
 from .model import DTYPES, check_supported
 
@@ -32,8 +34,9 @@ def _tensors(tree, dtype: torch.dtype, device, *, rep=None):
     return out
 
 
-def from_jax(params: dict, cfg: ModelConfig, *, device="cpu") -> dict:
+def from_jax(params: dict, cfg: ModelConfig, *, device="cuda") -> dict:
     check_supported(cfg)
+    device = resolve_device(device)
     dtype = DTYPES[cfg.dtype]
     pattern = cfg.block_pattern
     reps = cfg.num_layers // len(pattern)

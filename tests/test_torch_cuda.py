@@ -34,7 +34,8 @@ from repro_torch.kernels.trsm_block import cuda as trsm_cuda
 from repro_torch.kernels.trsm_block.ref import block_apply_ref
 from repro_torch.configs import smoke_config
 from repro_torch.models.model import Model
-from repro_torch.sparse import banded_lower, lung2_like
+from repro_torch.sparse import (banded_lower, chain_matrix, lung2_like,
+                                random_lower, refresh_values)
 
 # |kernel - plain| / max |plain|: nvcc contracts to FMA, bits may differ
 KERNEL_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
@@ -217,6 +218,119 @@ def test_flash_kernel_rejects_bad_inputs(card):
     wide = torch.zeros((1, 8, 1, 320), device=card)
     with pytest.raises(ValueError):
         flash_cuda.flash_attn(wide, wide, wide)
+
+
+def _qkv(B, Sq, Sk, Hq, Hkv, hd, dtype, dev, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal((B, S, H, hd), dtype=np.float32))
+                 .to(dev, dtype) for S, H in ((Sq, Hq), (Sk, Hkv), (Sk, Hkv)))
+
+
+def _flash_case(dev, dtype, B, Sq, Sk, Hq, Hkv, hd, seed, **kw):
+    q, k, v = _qkv(B, Sq, Sk, Hq, Hkv, hd, dtype, dev, seed)
+    before = flash_cuda.launches["flash_attn"]
+    got = flash_cuda.flash_attn(q, k, v, **kw)
+    want = gqa_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_cuda.launches["flash_attn"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    err = _rel(got.float(), want.float())
+    assert err <= FLASH_TOL[dtype], (Sq, Sk, Hq, Hkv, hd, kw, err)
+
+
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 200, 2048])
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
+def test_flash_bf16_tensor_cores_match_plain(card, hd, S):
+    """The bf16 kernel (mma.sync) at every head-dim template and ragged
+    edge: B = 2, query/KV head ratios 1, 4 and 8, causal and not."""
+    for i, (Hq, Hkv) in enumerate(((2, 2), (4, 1), (8, 1))):
+        for causal in (True, False):
+            _flash_case(card, torch.bfloat16, 2, S, S, Hq, Hkv, hd,
+                        seed=S + hd + i, causal=causal)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Sq,Sk,causal,window,valid_len", [
+    (1, 200, True, 0, None),         # Sq < Sk
+    (65, 130, True, 0, None),
+    (200, 63, True, 0, None),        # Sq > Sk
+    (300, 1000, False, 0, None),
+    (200, 200, True, 1, None),       # window edges
+    (200, 200, True, 64, None),
+    (300, 300, False, 100, None),
+    (200, 200, True, 0, 150),        # valid_len < Sk
+    (200, 200, False, 0, 63),
+    (200, 200, True, 0, 0),          # no live key anywhere
+    (200, 200, False, 0, 0),
+    (300, 300, True, 64, 150),       # rows past valid_len + window: dead
+], ids=lambda v: str(v))
+def test_flash_masks_match_plain(card, dtype, Sq, Sk, causal, window, valid_len):
+    """Sq != Sk, windows, valid_len < Sk (including 0 and rows with no live
+    key, which the plain version gives the mean of v) in both kernels."""
+    for hd in (64, 128):
+        _flash_case(card, dtype, 2, Sq, Sk, 8, 2, hd, seed=Sq + Sk + hd,
+                    causal=causal, window=window, valid_len=valid_len)
+
+
+@pytest.mark.parametrize("hd", [33, 64, 200])
+def test_flash_bf16_plain_load_path(card, hd):
+    """Head dims that are not a multiple of 8, and tensors that are not
+    16-byte aligned, load without cp.async."""
+    _flash_case(card, torch.bfloat16, 2, 130, 130, 4, 2, hd, seed=hd, causal=True)
+    q, k, v = _qkv(1, 100, 100, 4, 2, hd, torch.bfloat16, card, seed=hd + 1)
+    shifted = []
+    for t in (q, k, v):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        shifted.append(view)
+    got = flash_cuda.flash_attn(*shifted, causal=True)
+    assert shifted[0].data_ptr() % 16 != 0
+    assert _rel(got.float(), gqa_attention_ref(q, k, v).float()) <= FLASH_TOL[torch.bfloat16]
+
+
+def _fused_matrix(name):
+    if name == "chain":
+        return chain_matrix(300)          # one row per span: 299 grid barriers
+    if name == "lung2":
+        return lung2_like(scale=0.05, seed=0)
+    return random_lower(2000, seed=4)
+
+
+def test_fused_batched_grid_fills_the_card(card):
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for dtype in (torch.float32, torch.float64):
+        assert fused_cuda.batched_grid(dtype) >= sms > 1
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("name", ["chain", "lung2", "random"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [1, 7, 32, 33, 64])
+def test_fused_batched_grid_matches_plain(card, m, dtype, name, transpose):
+    """The cooperative-grid fused solve against the same solver on the CPU
+    (the plain chunk walk): three solves back to back, with a value
+    refresh before the third, so the barrier's counters are reused across
+    launches."""
+    L = _fused_matrix(name).astype(np.float32 if dtype == torch.float32 else np.float64)
+    new = refresh_values(L, seed=1)
+    rng = np.random.default_rng(m)
+    bs = [torch.from_numpy(rng.standard_normal((L.n, m))).to(dtype) for _ in range(3)]
+    out = {}
+    for dev in (torch.device("cpu"), card):
+        s = SpTRSV.build(L, transpose=transpose, device=dev, strategy="pallas_fused")
+        before = fused_cuda.launches["sptrsv_fused_batched"]
+        xs = [s.solve(bs[0].to(dev)), s.solve(bs[1].to(dev))]
+        s.refresh(new)
+        xs.append(s.solve(bs[2].to(dev)))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert fused_cuda.launches["sptrsv_fused_batched"] == before + 3
+        out[dev.type] = [x.cpu() for x in xs]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert got.shape == want.shape
+        assert _rel(got, want) <= KERNEL_TOL[dtype]
 
 
 def test_lm_prefill_on_card_matches_cpu(card):

@@ -33,7 +33,7 @@ from repro_torch.launch import serve as launch_serve
 from repro_torch.models import config as port_config
 from repro_torch.models import layers as pl
 from repro_torch.models.convert import from_jax
-from repro_torch.models.model import Model
+from repro_torch.models.model import DTYPES, Model
 from repro_torch.serve.engine import Request, ServeEngine
 
 ARCH = "granite-3-8b"
@@ -58,7 +58,7 @@ def _pair(dtype, seed=0):
     jm = JaxModel(dataclasses.replace(jax_smoke_config(ARCH), dtype=dtype), remat=False)
     jp = jm.init(jax.random.key(seed))
     pm = Model(cfg, device="cpu")
-    return jm, jp, pm, from_jax(jax.tree.map(np.asarray, jp), cfg)
+    return jm, jp, pm, from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
 
 
 def _tokens(seed, shape, vocab):
@@ -105,6 +105,44 @@ def test_full_granite_on_meta_has_params_B():
     # the table is padded to vocab_pad rows; params_B counts vocab_size
     counted -= (cfg.vocab_pad - cfg.vocab_size) * cfg.d_model
     assert counted == round(cfg.params_B() * 1e9) == 8_170_516_480
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_from_jax_defaults_to_the_card(dtype):
+    """``from_jax`` resolves its device like every other entry point: the
+    card unless the caller asks for the CPU.  On the CPU it gives layer
+    ``r * len(pattern) + pos`` as slice ``r`` of the JAX pytree's stacked
+    block ``p<pos>``, weights in the compute dtype and norm scales in f32."""
+    cfg = _cfg(dtype)
+    jm = JaxModel(dataclasses.replace(jax_smoke_config(ARCH), dtype=dtype), remat=False)
+    tree = jax.tree.map(np.asarray, jm.init(jax.random.key(3)))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            from_jax(tree, cfg)
+    got = from_jax(tree, cfg, device="cpu")
+    pattern = cfg.block_pattern
+    want = [jax.tree.map(lambda a, r=r: a[r], tree["blocks"][f"p{pos}"])
+            for r in range(cfg.num_layers // len(pattern))
+            for pos in range(len(pattern))] + list(tree["tail"])
+    assert len(got["layers"]) == len(want) == cfg.num_layers
+
+    def same(port, ref):
+        assert port.keys() == ref.keys()
+        for key, val in ref.items():
+            if isinstance(val, dict):
+                same(port[key], val)
+                continue
+            t = port[key]
+            assert t.device.type == "cpu"
+            assert t.dtype == (torch.float32 if key == "scale" else DTYPES[dtype])
+            np.testing.assert_array_equal(
+                t.float().numpy(),
+                torch.from_numpy(np.array(val, np.float32)).to(t.dtype).float().numpy())
+
+    for port, ref in zip(got["layers"], want):
+        same(port, ref)
+    same(got["embed"], tree["embed"])
+    same(got["final_ln"], tree["final_ln"])
 
 
 # --------------------------------------------------------------------------
