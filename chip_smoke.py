@@ -15,11 +15,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ``src/repro_torch/kernels/csrc`` with nvcc, one process per source;
    count the tensor-core (``HMMA``) instructions in the flash library's
    SASS, which must not be 0;
-2. hold each of the nine kernel entry points against its plain torch
+2. hold each of the eleven kernel entry points against its plain torch
    version on the same CUDA tensors at the paths' shapes (f32/f64, m in
    {1, 32}, the batched fused solve also on a 1,000-row chain, one span
-   per row; flash attention in bf16/f32 at granite's prefill shape, a
-   ragged sliding-window case and each head-dim template 64/128/256);
+   per row; the blocked walk on the band's layout, lung2's blocked layout
+   (the cooperative grid) and a random layout of mixed block sizes; the
+   SpMV on E with and without row lengths, and with v[0] = inf; flash
+   attention in bf16/f32 at granite's prefill shape, a ragged
+   sliding-window case and each head-dim template 64/128/256);
 3. the paths, each with the launch counts zeroed just before and read just
    after, every kernel of the path launched:
    a. ``SpTRSV.build_pair`` for ``pallas_level``, ``pallas_level`` +
@@ -36,7 +39,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
       left in place;
    c. ``strategy="blocked"`` on the band: residual, agreement with
       ``scipy.sparse.linalg.spsolve_triangular`` in f64 on the host, and
-      ``refresh``;
+      ``refresh``; one blocked-walk launch per solve, no SpMV or
+      per-segment apply launch;
    small matrices of every path are held against a dense solve first;
    d. granite-3-8b served by ``ServeEngine`` (4 slots, a 2,048-token cache,
       8 requests with prompts of 512-2,048 tokens, 16 new tokens each):
@@ -48,9 +52,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 4. CUDA-event times per solve and per kernel (median and range of three
    batches; a solve slower than the batch budget is timed once), beside
    each kernel's bound, its plain version and a library call, and the
-   launches of each kernel in one forward f64 solve; for the LM, prefill ms
-   per request, decode ms per step beside its weight-read bound, and the
-   device's busy share of a decode step.
+   launches of each kernel in one forward f64 solve; the device's busy
+   share of a blocked solve; for the LM, prefill ms per request, decode ms
+   per step beside its weight-read bound, and the device's busy share of a
+   decode step.  The per-segment block apply is off the paths since the
+   walk took its place; it is checked and timed as before.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
@@ -89,6 +95,10 @@ REWRITE_AGREE_TOL = {"float64": 1e-8, "float32": 1e-4}
 # blocked against scipy's f64 solve: rtol 1e-12 of the JAX package's
 # tests/test_blocked.py:166 (f64); f32 as above
 BLOCKED_AGREE_TOL = {"float64": 1e-12, "float32": 1e-4}
+# the blocked walk's mixed layout in phase 2: a random factor whose relaxed
+# supernodes give blocks of 1 to 9 rows with pad lanes, several blocks of
+# T > 1 per segment
+MIXED_N, MIXED_SUPERNODES = 40_000, dict(relax=1.0, max_block=32)
 # H100 SXM data sheet: HBM rate; vector (non-tensor-core) FP rates
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
@@ -144,9 +154,16 @@ KERNELS = {
                          "src/repro/kernels/trsm_block/lowering_tpu.py:41"),
     "trsm_block_apply_batched": ("src/repro_torch/kernels/csrc/trsm_block.cu",
                                  "src/repro/kernels/trsm_block/lowering_tpu.py:41"),
+    "trsm_block_walk": ("src/repro_torch/kernels/csrc/trsm_block.cu",
+                        "src/repro/kernels/trsm_block/lowering_tpu.py:41"),
+    "trsm_block_walk_batched": ("src/repro_torch/kernels/csrc/trsm_block.cu",
+                                "src/repro/kernels/trsm_block/lowering_tpu.py:41"),
     "flash_attn": ("src/repro_torch/kernels/csrc/flash_attn.cu",
                    "src/repro/kernels/flash_attn/kernel.py:91"),
 }
+# kernels that no path launches any more: held against their plain version
+# and timed, with 0 launches on the paths
+OFF_PATH = ("trsm_block_apply", "trsm_block_apply_batched")
 LEVEL_TAGS = ("pallas_level", "pallas_level+coarsen", "pallas_fused")
 VARIANTS = {"pallas_level": dict(strategy="pallas_level"),
             "pallas_level+coarsen": dict(strategy="pallas_level", coarsen=True),
@@ -282,6 +299,16 @@ def spmv_bound_ms(E, m: int, dtype: str) -> tuple[float, str]:
     once, ``y`` written once; one multiply-add per nonzero and column."""
     s = 8 if dtype == "float64" else 4
     return bound_ms(E.nnz * (4 + s) + 2 * E.n * m * s, 2 * E.nnz * m, dtype)
+
+
+def walk_bound_ms(lay, m: int, dtype: str) -> tuple[float, str]:
+    """One blocked solve of ``m`` RHS: the inverted diagonal blocks, the
+    panel (int32 column + value per slot) and ``bhat`` read once, ``x``
+    written once; the panel's and the applies' multiply-adds."""
+    s = 8 if dtype == "float64" else 4
+    panel = lay.cols_flat.size
+    return bound_ms(lay.dinv_flat.size * s + panel * (4 + s) + 2 * lay.n * m * s,
+                    2 * m * (panel + lay.dinv_flat.size), dtype)
 
 
 def block_apply_bound_ms(shapes, m: int, dtype: str) -> tuple[float, str]:
@@ -503,19 +530,19 @@ def main() -> int:
     import scipy.sparse as sp
     from scipy.sparse.linalg import spsolve_triangular
 
-    from repro_torch.core import RewriteConfig, SpTRSV
-    from repro_torch.core.coarsen import coarsen_schedule
+    from repro_torch.core import RewriteConfig, SpTRSV, SupernodeConfig
+    from repro_torch.core.coarsen import build_block_schedule, coarsen_schedule
     from repro_torch.core.codegen import build_ell, build_schedule
-    from repro_torch.core.levels import build_level_sets
+    from repro_torch.core.levels import build_level_sets, detect_supernodes
     from repro_torch.core.packed import (build_packed_blocked_layout,
                                          pack_blocked_values, permute_rhs,
-                                         segment_steps)
+                                         segment_steps, walk_geometry)
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attn import cuda as flash_cuda
     from repro_torch.kernels.flash_attn.ref import gqa_attention_ref
     from repro_torch.kernels.spmv_ell import cuda as spmv_cuda
-    from repro_torch.kernels.spmv_ell.ops import device_cols
+    from repro_torch.kernels.spmv_ell.ops import device_cols, device_row_len
     from repro_torch.kernels.spmv_ell.ref import spmv_ref
     from repro_torch.kernels.sptrsv_fused import cuda as fused_cuda
     from repro_torch.kernels.sptrsv_fused.ops import build_layout
@@ -524,10 +551,11 @@ def main() -> int:
     from repro_torch.kernels.sptrsv_level.ops import make_packed_solver
     from repro_torch.kernels.sptrsv_level.ref import level_walk_ref
     from repro_torch.kernels.trsm_block import cuda as trsm_cuda
-    from repro_torch.kernels.trsm_block.ref import block_apply_ref
+    from repro_torch.kernels.trsm_block.ops import make_walk_table
+    from repro_torch.kernels.trsm_block.ref import block_apply_ref, blocked_walk_ref
     from repro_torch.models.model import Model
     from repro_torch.sparse import (banded_lower, chain_matrix, lung2_like,
-                                    refresh_values)
+                                    random_lower, refresh_values)
 
     counters = (level_cuda, fused_cuda, spmv_cuda, trsm_cuda, flash_cuda)
 
@@ -620,6 +648,29 @@ def main() -> int:
               f"{st['mean_block_size']:.1f}, panel K max "
               f"{max(sl.K for sl in s.block_schedule.slabs)} "
               f"(built both dtypes in {t_blk:.1f} s)")
+
+    # The blocked walk's layouts: the band's (from its solver), lung2's
+    # single-row supernodes and a random factor of mixed block sizes.
+    t0 = time.perf_counter()
+
+    def blocked_layout(M, config=None):
+        sn = detect_supernodes(M, config=config or SupernodeConfig())
+        return build_packed_blocked_layout(build_block_schedule(M, sn))
+
+    mixed = random_lower(MIXED_N, seed=5)
+    walk_layouts = {
+        "band": (blocked_layout(band64), band64),
+        "lung2": (blocked_layout(L64), L64),
+        "mixed": (blocked_layout(mixed, SupernodeConfig(**MIXED_SUPERNODES)), mixed)}
+    walk_tables = {what: make_walk_table(walk_geometry(lay),
+                                         [g.lane_idx for g in lay.segments], dev)
+                   for what, (lay, _) in walk_layouts.items()}
+    for what, (lay, _) in walk_layouts.items():
+        geo = walk_tables[what].host
+        print(f"walk layout {what}: n={lay.n} segments={geo.shape[0]} B max "
+              f"{geo[:, 2].max()} T {sorted(set(geo[:, 3].tolist()))[:12]} K max "
+              f"{geo[:, 4].max()} pad lanes {int((geo[:, 2] * geo[:, 3] - geo[:, 1]).sum())}")
+    print(f"built the walk layouts in {time.perf_counter() - t0:.1f} s")
 
     # -- phase 2: each kernel against its plain version -------------------
     rng = np.random.default_rng(0)
@@ -729,6 +780,50 @@ def main() -> int:
                        dt, trsm_cuda.block_apply(dinv, rhs),
                        block_apply_ref(dinv, rhs),
                        f"m={m:2d} {what} B={B_} T={T_}")
+
+        # the SpMV with E's row lengths, as the rewrite path runs it: the
+        # same values as all K slots, NaN rows included when v[0] = inf
+        ecols, evals, _ = slabs["lung2 E"]
+        elen = device_row_len(E.row_nnz(), ell.cols, dev)
+        for m in WIDTHS:
+            v = randn((E.n,) if m == 1 else (E.n, m), tdt)
+            name = "spmv_ell" if m == 1 else "spmv_ell_batched"
+            record(name, dt, spmv_cuda.spmv(v, ecols, evals, elen),
+                   spmv_ref(v, ecols.long(), evals),
+                   f"m={m:2d} lung2 E with row lengths")
+            v[0] = float("inf")
+            got = spmv_cuda.spmv(v, ecols, evals, elen)
+            full = spmv_cuda.spmv(v, ecols, evals)
+            want = spmv_ref(v, ecols.long(), evals)
+            torch.cuda.synchronize()
+            fin = torch.isfinite(want)
+            for y in (got, full):
+                check(torch.equal(torch.isnan(y), torch.isnan(want))
+                      and torch.equal(torch.isinf(y), torch.isinf(want)),
+                      f"{name} {dt} v[0]=inf: NaN/inf rows differ")
+            check(torch.equal(got[fin], full[fin]),
+                  f"{name} {dt} v[0]=inf: row lengths change a value")
+            err = rel_err(got[fin], want[fin])
+            check(err <= KERNEL_TOL[dt], f"{name} {dt} v[0]=inf: rel err {err:.3e}")
+            print(f"phase 2: {name:24s} {dt} m={m:2d} lung2 E with row lengths, "
+                  f"v[0]=inf: {int(torch.isnan(want).sum())} NaN entries as in "
+                  f"the plain version, finite ones max rel err {err:.3e}")
+
+        # the blocked walk on each layout
+        for what, (lay, M) in walk_layouts.items():
+            table = walk_tables[what]
+            wcols = device_cols(lay.cols_flat, lay.n, dev)
+            wvals, wdinv = (torch.from_numpy(a).to(dev, tdt)
+                            for a in pack_blocked_values(lay, M.data))
+            for m in WIDTHS:
+                bhat = randn((lay.n,) if m == 1 else (lay.n, m), tdt)
+                xk, xr = torch.zeros_like(bhat), torch.zeros_like(bhat)
+                trsm_cuda.blocked_walk(xk, bhat, wcols, wvals, wdinv, table)
+                blocked_walk_ref(xr, bhat, wcols.long(), wvals, wdinv, table)
+                cfg = trsm_cuda.walk_config(table, m, tdt)
+                record("trsm_block_walk" if m == 1 else "trsm_block_walk_batched",
+                       dt, xk, xr, f"m={m:2d} {what} ({table.num_segments} "
+                       f"segments; {json.dumps(cfg)})")
 
     flash_checks(torch, dev, rng, record, flash_cuda, gqa_attention_ref)
 
@@ -890,6 +985,7 @@ def main() -> int:
     # 3c: the blocked solves on the band
     reset_counts()
     t0 = time.perf_counter()
+    blk_solves = {"trsm_block_walk": 0, "trsm_block_walk_batched": 0}
     for dt, B in bands.items():
         A = scipy_csr(B)
         A64 = scipy_csr(band64)
@@ -905,6 +1001,7 @@ def main() -> int:
             b = torch.from_numpy(b_np).to(dev)
             for s in blk_solvers[dt]:
                 x = s.solve(b)
+                blk_solves["trsm_block_walk" if m == 1 else "trsm_block_walk_batched"] += 1
                 torch.cuda.synchronize()
                 xn = x.double().cpu().numpy()
                 check(x.shape == b.shape and np.isfinite(xn).all(),
@@ -928,6 +1025,7 @@ def main() -> int:
             check(ptrs == [v.data_ptr() for v in s._values],
                   "blocked: refresh moved a value buffer")
             xn = s.solve(torch.from_numpy(b_np).to(dev)).double().cpu().numpy()
+            blk_solves["trsm_block_walk_batched"] += 1
             res = residual(A2[s.transpose], xn, b_np.astype(np.float64))
             check(res <= RESIDUAL_TOL[dt],
                   f"refresh blocked {dt} T={s.transpose}: residual {res:.3e}")
@@ -938,10 +1036,11 @@ def main() -> int:
     path_launches["blocked"] = counts()
     print(f"phase 3c: blocked path in {time.perf_counter() - t0:.1f} s; "
           f"launches {json.dumps(path_launches['blocked'])}")
-    for name in ("spmv_ell", "spmv_ell_batched", "trsm_block_apply",
-                 "trsm_block_apply_batched"):
-        check(path_launches["blocked"][name] > 0,
-              f"{name} never launched on the blocked path")
+    # one walk launch per solve, and nothing else
+    want = {name: blk_solves.get(name, 0) for name in path_launches["blocked"]}
+    check(path_launches["blocked"] == want,
+          f"blocked path launches {json.dumps(path_launches['blocked'])}, "
+          f"expected one walk per solve: {json.dumps(want)}")
 
     # 3d: the LM serving path at granite-3-8b's full width and depth
     cfg = get_config(LM_ARCH)
@@ -963,7 +1062,8 @@ def main() -> int:
     main_launches = {name: sum(p[name] for p in path_launches.values())
                      for name in KERNELS}
     for name in KERNELS:
-        check(main_launches[name] > 0, f"{name} never launched on the paths")
+        check((main_launches[name] > 0) != (name in OFF_PATH),
+              f"{name} launched {main_launches[name]} times on the paths")
 
     # launches of each kernel in one forward f64 solve, per strategy
     per_solve = {name: {} for name in KERNELS}
@@ -980,6 +1080,10 @@ def main() -> int:
                 if n:
                     per_solve[name][tag] = n
     print(f"launches per solve: {json.dumps(per_solve)}")
+    blk_per_solve = {name: n for name, n in per_solve.items() if "blocked" in n}
+    check(blk_per_solve == {"trsm_block_walk": {"blocked": 1},
+                            "trsm_block_walk_batched": {"blocked": 1}},
+          f"launches per blocked solve: {json.dumps(blk_per_solve)}")
     print("launches per rewritten pallas_level forward f64 solve: "
           f"{per_solve['sptrsv_level'].get('rewrite:pallas_level')} level + "
           f"{per_solve['spmv_ell'].get('rewrite:pallas_level')} SpMV "
@@ -1017,9 +1121,10 @@ def main() -> int:
                    ("rewrite:pallas_fused", rw_solvers["pallas_fused", "float64"][0])):
         print(f"phase 4: profile {tag} f64 m=1 forward: "
               + device_busy(torch, lambda: s.solve(b1)))
-    bb1 = torch.from_numpy(rng.standard_normal(BAND_N)).to(dev)
-    print("phase 4: profile blocked (band) f64 m=1 forward: "
-          + device_busy(torch, lambda: blk_solvers["float64"][0].solve(bb1)))
+    for m in WIDTHS:
+        bb1 = torch.from_numpy(rng.standard_normal((BAND_N,) if m == 1 else (BAND_N, m))).to(dev)
+        print(f"phase 4: profile blocked (band) f64 m={m} forward: "
+              + device_busy(torch, lambda: blk_solvers["float64"][0].solve(bb1)))
 
     dt, L, tdt = "float64", L64, torch.float64
     _, vals0, _, lay = make_packed_solver(fwd.schedule, device="cuda")
@@ -1042,6 +1147,7 @@ def main() -> int:
     ecols = device_cols(ell.cols, E.n, dev)
     ecols64 = ecols.long()
     evals = torch.from_numpy(ell.vals).to(dev)
+    elen = device_row_len(E.row_nnz(), ell.cols, dev)
     E_csr = torch.sparse_csr_tensor(
         torch.from_numpy(E.indptr), torch.from_numpy(E.indices),
         torch.from_numpy(E.data), size=E.shape, device=dev)
@@ -1056,6 +1162,14 @@ def main() -> int:
     shapes = [(s.B, s.T) for s in blay.segments]
     print(f"phase 4: the band's blocked forward solve applies {len(seg_dinv)} "
           f"segments of (B, T) = {sorted(set(shapes))}")
+    # the blocked walk of one band solve, as the path launches it
+    wtable = make_walk_table(walk_geometry(blay), [g.lane_idx for g in blay.segments], dev)
+    wcols = device_cols(blay.cols_flat, blay.n, dev)
+    wcols64 = wcols.long()
+    wvals = torch.from_numpy(pack_blocked_values(blay, band64.data)[0]).to(dev)
+    band_csr = torch.sparse_csr_tensor(
+        torch.from_numpy(band64.indptr), torch.from_numpy(band64.indices),
+        torch.from_numpy(band64.data), size=band64.shape, device=dev)
     report = []
 
     def row(name, ms, plain_ms, bound, lib_ms):
@@ -1103,8 +1217,10 @@ def main() -> int:
             time_ms(torch, lambda: fused_cuda.fused_solve(bl, fcols, fvals, fdiag, spans)),
             time_ms(torch, lambda: fused_solve_ref(bl, fcols, fvals, fdiag,
                                                    chunk=flay.chunk)), bound, lib_ms)
+        print(f"phase 4: spmv over all K slots (no row lengths) m={m:2d}: "
+              f"{fmt_ms(time_ms(torch, lambda: spmv_cuda.spmv(bv, ecols, evals)))}")
         row("spmv_ell" if m == 1 else "spmv_ell_batched",
-            time_ms(torch, lambda: spmv_cuda.spmv(bv, ecols, evals)),
+            time_ms(torch, lambda: spmv_cuda.spmv(bv, ecols, evals, elen)),
             time_ms(torch, lambda: spmv_ref(bv, ecols64, evals)),
             spmv_bound_ms(E, m, dt),
             library("torch.sparse.mm on a CSR E", lambda: torch.sparse.mm(E_csr, b)))
@@ -1116,11 +1232,26 @@ def main() -> int:
                 fn(d, r)
 
         rhs3 = [r if m > 1 else r[..., None] for r in rhs]
+        bmm_ms = library("torch.bmm per segment", lambda: loop(torch.bmm, rhs3))
         row("trsm_block_apply" if m == 1 else "trsm_block_apply_batched",
             time_ms(torch, lambda: loop(trsm_cuda.block_apply)),
             time_ms(torch, lambda: loop(block_apply_ref)),
-            block_apply_bound_ms(shapes, m, dt),
-            library("torch.bmm per segment", lambda: loop(torch.bmm, rhs3)))
+            block_apply_bound_ms(shapes, m, dt), bmm_ms)
+        bw = torch.from_numpy(rng.standard_normal((BAND_N,) if m == 1 else (BAND_N, m))).to(dev)
+        xw, xw_ref = torch.zeros_like(bw), torch.zeros_like(bw)
+        wname = "trsm_block_walk" if m == 1 else "trsm_block_walk_batched"
+        wms = time_ms(torch, lambda: trsm_cuda.blocked_walk(xw, bw, wcols, wvals,
+                                                            dinv_all, wtable))
+        print(f"phase 4: {wname} m={m:2d}: {json.dumps(trsm_cuda.walk_config(wtable, m, tdt))}, "
+              f"{wms[0] / len(blay.segments) * 1e3:.3f} us per segment; "
+              f"torch.bmm per segment {'n/a' if bmm_ms is None else f'{bmm_ms:.4f} ms'}")
+        bw2 = bw if m > 1 else bw[:, None]
+        row(wname, wms,
+            time_ms(torch, lambda: blocked_walk_ref(xw_ref, bw, wcols64, wvals,
+                                                    dinv_all, wtable)),
+            walk_bound_ms(blay, m, dt),
+            library("torch.triangular_solve on the band's CSR",
+                    lambda: torch.triangular_solve(bw2, band_csr, upper=False)))
         # one launch over a synthetic batch, off the path: the kernel's rate
         # when a launch holds enough work to fill the card
         dsyn = torch.from_numpy(rng.standard_normal((512, 64, 64))).to(dev)

@@ -25,8 +25,8 @@ position ``n`` need scratch, provided by the ``n_pad - n`` tail.
 This module also holds the plain torch-op executor of the layout
 (``strategy="levelset"``), the baseline the kernels are measured against,
 the rewritten solve's RHS transform ``b' = E b`` on the SpMV kernel, and
-the blocked (supernodal) layout and its executor on the SpMV and
-block-apply kernels.
+the blocked (supernodal) layout and its executor, one blocked-walk kernel
+launch per solve.
 """
 from __future__ import annotations
 
@@ -36,9 +36,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..kernels.spmv_ell.ops import device_cols, spmv
+from ..kernels.spmv_ell.ops import device_cols, device_row_len, spmv
 from ..kernels.sptrsv_level.ref import level_walk_ref
-from ..kernels.trsm_block.ops import block_apply
+from ..kernels.trsm_block.ops import blocked_walk, make_walk_table
 from .codegen import Schedule, build_ell, stack_sub_slabs
 from .rewrite import RewriteResult
 
@@ -57,6 +57,7 @@ __all__ = [
     "PackedBlockedLayout",
     "build_packed_blocked_layout",
     "pack_blocked_values",
+    "walk_geometry",
     "make_packed_blocked_solver",
 ]
 
@@ -448,46 +449,47 @@ def pack_blocked_values(layout: PackedBlockedLayout, data: np.ndarray):
     return vals, dinv
 
 
+def walk_geometry(layout: PackedBlockedLayout) -> np.ndarray:
+    """``(S, 8)`` int64 segment table of the layout for the blocked walk,
+    rows ``(off, R, B, T, K, val_off, dinv_off, lane_off)`` in execution
+    order (:data:`repro_torch.kernels.trsm_block.table.GEOMETRY`)."""
+    rows, lane_off = [], 0
+    for seg in layout.segments:
+        rows.append((seg.off, seg.R, seg.B, seg.T, seg.K, seg.val_off,
+                     seg.dinv_off, lane_off))
+        lane_off += seg.B * seg.T
+    return np.array(rows, dtype=np.int64).reshape(-1, 8)
+
+
 def make_packed_blocked_solver(layout: PackedBlockedLayout, *, device):
-    """Permuted-space blocked (supernodal) executor.
+    """Permuted-space blocked (supernodal) executor: one blocked-walk
+    launch per solve
+    (:func:`repro_torch.kernels.trsm_block.ops.blocked_walk`), which runs
+    every super-level's panel SpMV ``s = Panel x``, the lane scatter of
+    ``b - s``, the batched diagonal-block apply and the lane gather into
+    ``x`` in order.
 
     Returns ``solve(b, values)`` with ``values = (vals_flat, dinv_flat)`` as
-    tensors on ``device`` (from :func:`pack_blocked_values`).  Per
-    super-level: the panel SpMV ``s = Panel x`` (one SpMV kernel launch),
-    the lane scatter of ``b - s`` (torch ops), the batched diagonal-block
-    apply (one block-apply kernel launch), and the lane gather written
-    contiguously into ``x``.  ``b`` may be ``(n,)`` or ``(n, m)``; values
-    are cast to ``b``'s dtype per solve."""
+    tensors on ``device`` (from :func:`pack_blocked_values`); the walk reads
+    them by pointer, so a refresh that copies into them needs no rebuild.
+    ``b`` may be ``(n,)`` or ``(n, m)``; values are cast to ``b``'s dtype
+    per solve."""
     dev = torch.device(device)
     # padded panel lanes keep column 0 -> position pos[0]: their value is 0
     # and x starts zero-filled, so the gather adds nothing
     cols_flat = device_cols(layout.cols_flat, layout.n, dev)
     perm = torch.from_numpy(layout.perm).to(dev)
     pos = torch.from_numpy(layout.pos).to(dev)
-    segs = [(seg.off, seg.R, seg.B, seg.T, seg.K, seg.val_off, seg.dinv_off,
-             torch.from_numpy(seg.lane_idx.astype(np.int64)).to(dev))
-            for seg in layout.segments]
+    table = make_walk_table(walk_geometry(layout),
+                            [seg.lane_idx for seg in layout.segments], dev)
 
     def solve(b: torch.Tensor, values) -> torch.Tensor:
         vals_flat, dinv_flat = values
         dt = b.dtype
-        vf = vals_flat.to(dt)
-        dvf = dinv_flat.to(dt)
-        tail = tuple(b.shape[1:])
         bhat = b.index_select(0, perm)
         x = torch.zeros_like(bhat)
-        for off, R, B, T, K, voff, doff, lane in segs:
-            BT = B * T
-            span = slice(voff, voff + K * BT)
-            # rhs = b - s on the real lanes, -s on the pads: -s + b is
-            # exactly b - s in IEEE arithmetic
-            rhs = spmv(x, cols_flat[span].view(K, BT),
-                       vf[span].view(K, BT)).neg_()
-            rhs.index_add_(0, lane, bhat[off: off + R])
-            xb = block_apply(dvf[doff: doff + BT * T].view(B, T, T),
-                             rhs.view((B, T) + tail))
-            torch.index_select(xb.view((BT,) + tail), 0, lane,
-                               out=x[off: off + R])
+        blocked_walk(x, bhat, cols_flat, vals_flat.to(dt), dinv_flat.to(dt),
+                     table)
         return x.index_select(0, pos)
 
     return solve
@@ -495,7 +497,7 @@ def make_packed_blocked_solver(layout: PackedBlockedLayout, *, device):
 
 def make_packed_rhs_transform(res: RewriteResult, *, device):
     """``b' = E b`` on the SpMV kernel, with E's ELL values as a persistent
-    buffer.
+    buffer and its row lengths uploaded once beside the columns.
 
     Returns ``(transform(b, e_vals), e_vals0, repack)``: ``e_vals0`` is the
     ``(K, n)`` value tensor on ``device`` and ``repack(e_data)`` re-packs
@@ -510,9 +512,12 @@ def make_packed_rhs_transform(res: RewriteResult, *, device):
     dev = torch.device(device)
     ell = build_ell(res.E)
     cols = device_cols(ell.cols, res.E.n, dev)
+    # the kernel reads each row's real entries only (E's rows are mostly
+    # one entry long; ELL pads them all to K)
+    row_len = device_row_len(res.E.row_nnz(), ell.cols, dev)
 
     def transform(b: torch.Tensor, e_vals: torch.Tensor) -> torch.Tensor:
-        return spmv(b, cols, e_vals.to(b.dtype))
+        return spmv(b, cols, e_vals.to(b.dtype), row_len)
 
     def repack(e_data: np.ndarray) -> np.ndarray:
         return gather_src(e_data, ell.val_src, 0.0, ell.vals.dtype)

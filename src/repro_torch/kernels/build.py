@@ -7,8 +7,9 @@ into its own shared library on first use, then loaded with ``ctypes``:
          -Xcompiler -fPIC -Xptxas=-v -o <lib>.so csrc/<name>.cu
 
 Libraries land in ``build/repro_torch_kernels/`` at the repository root,
-named by a digest of the source and flags, so an edited source rebuilds and
-an unchanged one is reused.  :func:`build_all` starts one ``nvcc`` per
+named by a digest of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source or header rebuilds and an unchanged one is
+reused.  :func:`build_all` starts one ``nvcc`` per
 source at once and waits for all of them.  The compiler's ``-Xptxas=-v``
 report (registers, shared memory, spills) is kept beside each library as
 ``<lib>.log``.
@@ -51,6 +52,7 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where the library of kernel source ``name`` is (or will be) built."""
     src = (CSRC / SOURCES[name]).read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -34,13 +34,9 @@
 // a span the r_pad x m items, column fastest, are spread over every thread
 // of the grid: at m = 32 one warp takes one row, its lanes read that row's
 // 32 RHS values coalesced and the row's cols / vals entries are one
-// broadcast.  Spans are separated by a hand-written generation-counting
-// grid barrier on one arrival counter in global scratch, which the wrapper
-// zeroes for every launch: each block's thread 0 fences
-// (`__threadfence()`, publishing the block's writes), adds 1, and spins
-// until the count reaches (b + 1) x blocks for the launch's b-th barrier
-// (its generation is count / blocks).  Nothing is reset, so a barrier
-// costs one atomic and the loads that see the last arrival.
+// broadcast.  Spans are separated by the hand-written generation-counting
+// grid barrier of grid_barrier.cuh, on one arrival counter in global
+// scratch that the wrapper zeroes for every launch.
 //
 // The bug to expect: x is read after a barrier through L2
 // (`__ldcg`, ld.global.cg), never through L1.  L1 is not coherent across
@@ -55,6 +51,8 @@
 // Still open: per-row ready flags instead of barriers (Li,
 // arXiv:1710.04985) and a per-span ELL width (ROADMAP B3/B4).
 #include <cuda_runtime.h>
+
+#include "grid_barrier.cuh"
 
 namespace {
 
@@ -82,26 +80,6 @@ fused_block_kernel(T* __restrict__ x, const T* __restrict__ bl,
     }
     __syncthreads();
   }
-}
-
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-// Every block of the grid waits here until all have arrived (the arrival
-// count reaches `target`); the writes before it are visible (through L2)
-// to every block after it.
-__device__ __forceinline__ void grid_barrier(unsigned* count, unsigned target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(count, 1u);
-    while (ld_acquire(count) < target) {
-    }
-  }
-  __syncthreads();
 }
 
 template <typename T>

@@ -14,15 +14,18 @@ import pytest
 import torch
 
 from repro_torch.core import RewriteConfig, SpTRSV
-from repro_torch.core.coarsen import coarsen_schedule
+from repro_torch.core.coarsen import build_block_schedule, coarsen_schedule
 from repro_torch.core.codegen import build_ell, build_schedule
-from repro_torch.core.levels import build_level_sets
-from repro_torch.core.packed import segment_steps
+from repro_torch.core.levels import (SupernodeConfig, build_level_sets,
+                                     detect_supernodes)
+from repro_torch.core.packed import (build_packed_blocked_layout,
+                                     pack_blocked_values, segment_steps,
+                                     walk_geometry)
 from repro_torch.core.rewrite import rewrite_matrix
 from repro_torch.kernels.flash_attn import cuda as flash_cuda
 from repro_torch.kernels.flash_attn.ref import attention_ref, gqa_attention_ref
 from repro_torch.kernels.spmv_ell import cuda as spmv_cuda
-from repro_torch.kernels.spmv_ell.ops import device_cols
+from repro_torch.kernels.spmv_ell.ops import device_cols, device_row_len
 from repro_torch.kernels.spmv_ell.ref import spmv_ref
 from repro_torch.kernels.sptrsv_fused import cuda as fused_cuda
 from repro_torch.kernels.sptrsv_fused.ops import build_layout
@@ -31,7 +34,8 @@ from repro_torch.kernels.sptrsv_level import cuda as level_cuda
 from repro_torch.kernels.sptrsv_level.ops import make_packed_solver
 from repro_torch.kernels.sptrsv_level.ref import level_walk_ref
 from repro_torch.kernels.trsm_block import cuda as trsm_cuda
-from repro_torch.kernels.trsm_block.ref import block_apply_ref
+from repro_torch.kernels.trsm_block.ops import make_walk_table
+from repro_torch.kernels.trsm_block.ref import block_apply_ref, blocked_walk_ref
 from repro_torch.configs import smoke_config
 from repro_torch.models.model import Model
 from repro_torch.sparse import (banded_lower, chain_matrix, lung2_like,
@@ -177,6 +181,105 @@ def test_blocked_solver_on_card_matches_dense(card):
             x = s.solve(torch.from_numpy(rhs).to(card)).cpu().numpy()
             np.testing.assert_allclose(x, np.linalg.solve(A, rhs),
                                        rtol=1e-12, atol=1e-12)
+
+
+def test_blocked_solver_launches_the_walk_once(card):
+    """One walk launch per blocked solve, and no SpMV or per-segment apply."""
+    L = banded_lower(2000, bandwidth=24, fill=1.0, seed=1)
+    b = torch.from_numpy(np.random.default_rng(7).standard_normal((L.n, 32))).to(card)
+    for s in SpTRSV.build_pair(L, device=card, strategy="blocked"):
+        for rhs in (b[:, 0].contiguous(), b, b[:, :3].contiguous()):
+            trsm_cuda.reset_launches()
+            spmv_cuda.reset_launches()
+            s.solve(rhs)
+            torch.cuda.synchronize()
+            key = "trsm_block_walk" if rhs.dim() == 1 else "trsm_block_walk_batched"
+            assert trsm_cuda.launches == {**{k: 0 for k in trsm_cuda.launches}, key: 1}
+            assert set(spmv_cuda.launches.values()) == {0}
+
+
+# the walk's layouts: a dense band (B = 1, T = 64: one block per column
+# group), a band whose panels (K = 120) leave room for one f64 stage only,
+# lung2 (B > 1, T = 1: the cooperative grid, forward K <= 4 and the
+# transpose's wide panels), and mixed T (1 to 9, up to 298 blocks of T > 1)
+# with pad lanes
+def _walk_matrix(name):
+    if name == "band":
+        return banded_lower(6400, bandwidth=24, fill=1.0, seed=2), False, None
+    if name == "wide":
+        return banded_lower(1500, bandwidth=120, fill=1.0, seed=1), False, None
+    if name.startswith("lung2"):
+        return lung2_like(scale=0.05, seed=0), name.endswith("T"), None
+    return (random_lower(4000, seed=5), False,
+            SupernodeConfig(relax=1.0, max_block=32))
+
+
+def _walk_case(name, dev, dtype):
+    L, upper, cfg = _walk_matrix(name)
+    M = L.transpose() if upper else L
+    sn = detect_supernodes(M, upper=upper, config=cfg or SupernodeConfig())
+    lay = build_packed_blocked_layout(build_block_schedule(M, sn, upper=upper))
+    vals, dinv = pack_blocked_values(lay, M.data)
+    table = make_walk_table(walk_geometry(lay), [g.lane_idx for g in lay.segments], dev)
+    return (lay, table, device_cols(lay.cols_flat, lay.n, dev),
+            torch.from_numpy(vals).to(dev, dtype), torch.from_numpy(dinv).to(dev, dtype))
+
+
+@pytest.mark.parametrize("m", [1, 7, 32, 33])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["band", "wide", "lung2", "lung2T", "mixed"])
+def test_walk_kernel_matches_plain(card, name, dtype, m):
+    lay, table, cols, vals, dinv = _walk_case(name, card, dtype)
+    g = torch.Generator().manual_seed(m)
+    bhat = torch.randn((lay.n,) + (() if m == 1 else (m,)), generator=g,
+                       dtype=dtype).to(card)
+    key = "trsm_block_walk" if m == 1 else "trsm_block_walk_batched"
+    cfg = trsm_cuda.walk_config(table, m, dtype)
+    if name in ("band", "wide"):    # B = 1: a block per column group, no barrier
+        assert not cfg["cooperative"] and cfg["grid"] == cfg["groups"]
+    if name == "wide" and dtype == torch.float64:
+        assert cfg["stages"] == 1
+    if name.startswith("lung2") and m > 1:      # B > 32 blocks of T = 1
+        assert cfg["cooperative"] and cfg["barriers"] > 0
+    for _ in range(2):      # the second launch reuses the barrier's scratch
+        xk, xr = torch.zeros_like(bhat), torch.zeros_like(bhat)
+        before = trsm_cuda.launches[key]
+        trsm_cuda.blocked_walk(xk, bhat, cols, vals, dinv, table)
+        blocked_walk_ref(xr, bhat, cols.long(), vals, dinv, table)
+        torch.cuda.synchronize()
+        assert trsm_cuda.launches[key] == before + 1
+        assert torch.isfinite(xk).all()
+        assert _rel(xk, xr) <= KERNEL_TOL[dtype], (cfg, _rel(xk, xr))
+
+
+@pytest.mark.parametrize("m", [1, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_spmv_row_lengths_match_plain(card, dtype, m):
+    """The row-length SpMV on a rewritten E against its plain version (all
+    K slots), also with v[0] = inf: the same NaN rows."""
+    L = lung2_like(scale=0.05, seed=0)
+    E = rewrite_matrix(L, config=RewriteConfig()).E
+    ell = build_ell(E)
+    cols = device_cols(ell.cols, E.n, card)
+    row_len = device_row_len(E.row_nnz(), ell.cols, card)
+    vals = torch.from_numpy(ell.vals).to(card, dtype)
+    g = torch.Generator().manual_seed(11)
+    v = torch.randn((E.n,) + (() if m == 1 else (m,)), generator=g,
+                    dtype=dtype).to(card)
+    for v0 in (None, float("inf")):
+        if v0 is not None:
+            v[0] = v0
+        yk = spmv_cuda.spmv(v, cols, vals, row_len)
+        yf = spmv_cuda.spmv(v, cols, vals)
+        yr = spmv_ref(v, cols.long(), vals)
+        torch.cuda.synchronize()
+        for y in (yk, yf):
+            assert torch.equal(torch.isnan(y), torch.isnan(yr))
+            assert torch.equal(torch.isinf(y), torch.isinf(yr))
+        ok = torch.isfinite(yr)
+        assert torch.equal(yk[ok], yf[ok])
+        assert _rel(yk[ok], yr[ok]) <= KERNEL_TOL[dtype]
+    assert torch.isnan(yk).any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
