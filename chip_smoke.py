@@ -4,8 +4,10 @@ one NVIDIA GPU: the level-scheduled and fused solves and the equation
 rewriting at the size of the paper's lung2 (``lung2_like(scale=1.0)``:
 110,258 rows, 493 levels), the blocked solve on a dense band of the
 same row count (``banded_lower(110592, bandwidth=24, fill=1.0)``, the JAX
-blocked benchmark's band), and the LM serving path with granite-3-8b at
-full width and depth (40 layers, random weights from a seed).
+blocked benchmark's band) and on a band whose panels are too wide to
+stage (``banded_lower(8192, bandwidth=300, fill=1.0)``), and the LM
+serving path with granite-3-8b at full width and depth (40 layers, random
+weights from a seed).
 
     python3 chip_smoke.py
 
@@ -17,8 +19,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    SASS, which must not be 0;
 2. hold each of the eleven kernel entry points against its plain torch
    version on the same CUDA tensors at the paths' shapes (f32/f64, m in
-   {1, 32}, the batched fused solve also on a 1,000-row chain, one span
-   per row; the blocked walk on the band's layout, lung2's blocked layout
+   {1, 32}; the level walk over lung2's whole coarsened table in both
+   directions, one launch per segment: chains on one block or cluster,
+   the transpose's wide rows on up to 32 warps each, and a small lung2 transpose
+   whose chains are wide; the batched fused solve also on a 1,000-row
+   chain, one span per row; the blocked walk on the band's layout, the
+   wide band's (panels read from device memory), lung2's blocked layout
    (the cooperative grid) and a random layout of mixed block sizes; the
    SpMV on E with and without row lengths, and with v[0] = inf; flash
    attention in bf16/f32 at granite's prefill shape, a ragged
@@ -37,10 +43,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
       factor, agreement with the unrewritten ``levelset`` solve, and
       ``refresh`` (which replays the rewrite plan) with the value buffers
       left in place;
-   c. ``strategy="blocked"`` on the band: residual, agreement with
-      ``scipy.sparse.linalg.spsolve_triangular`` in f64 on the host, and
-      ``refresh``; one blocked-walk launch per solve, no SpMV or
-      per-segment apply launch;
+   c. ``strategy="blocked"`` on the band and the wide band: residual,
+      agreement with ``scipy.sparse.linalg.spsolve_triangular`` in f64 on
+      the host, and ``refresh``; one blocked-walk launch per solve, no
+      SpMV or per-segment apply launch;
    small matrices of every path are held against a dense solve first;
    d. granite-3-8b served by ``ServeEngine`` (4 slots, a 2,048-token cache,
       8 requests with prompts of 512-2,048 tokens, 16 new tokens each):
@@ -52,8 +58,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 4. CUDA-event times per solve and per kernel (median and range of three
    batches; a solve slower than the batch budget is timed once), beside
    each kernel's bound, its plain version and a library call, and the
-   launches of each kernel in one forward f64 solve; the device's busy
-   share of a blocked solve; for the LM, prefill ms per request, decode ms
+   launches of each kernel in one forward f64 solve; level launches per
+   ``pallas_level`` solve (with and without coarsening and rewriting,
+   both directions, m in {1, 32}: one per segment) and the level walk's
+   time on each lung2 table; the device's busy share of a blocked solve
+   and of the coarsened ``pallas_level`` solve; for the LM, prefill ms per request, decode ms
    per step beside its weight-read bound, and the device's busy share of a
    decode step.  The per-segment block apply is off the paths since the
    walk took its place; it is checked and timed as before.
@@ -81,6 +90,11 @@ ROOT = Path(__file__).resolve().parent
 LUNG2_SCALE = 1.0
 BAND_N, BAND_WIDTH = 110_592, 24
 SMALL_BAND_N = 600
+# a band whose f64 panels (K = 300) do not fit a walk stage (ROADMAP C1)
+WIDE_BAND_N, WIDE_BAND_WIDTH = 8192, 300
+# a lung2 transpose small enough that its coarsened chains are wide (K up
+# to 106): the level walk's warp-per-row chain variant
+WIDE_CHAIN_SCALE = 0.05
 
 # max |kernel - plain| / max |plain| on the same inputs: nvcc contracts the
 # multiply-add to FMA, so the two may differ by rounding.
@@ -534,9 +548,10 @@ def main() -> int:
     from repro_torch.core.coarsen import build_block_schedule, coarsen_schedule
     from repro_torch.core.codegen import build_ell, build_schedule
     from repro_torch.core.levels import build_level_sets, detect_supernodes
+    from repro_torch.core.levels import build_reverse_level_sets
     from repro_torch.core.packed import (build_packed_blocked_layout,
-                                         pack_blocked_values, permute_rhs,
-                                         segment_steps, walk_geometry)
+                                         level_table, pack_blocked_values,
+                                         permute_rhs, walk_geometry)
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attn import cuda as flash_cuda
@@ -600,13 +615,17 @@ def main() -> int:
     mats = {"float64": L64, "float32": L64.astype(np.float32)}
     band64 = banded_lower(BAND_N, bandwidth=BAND_WIDTH, fill=1.0, seed=0)
     bands = {"float64": band64, "float32": band64.astype(np.float32)}
+    wide64 = banded_lower(WIDE_BAND_N, bandwidth=WIDE_BAND_WIDTH, fill=1.0, seed=0)
+    wide_bands = {"float64": wide64, "float32": wide64.astype(np.float32)}
     print(f"lung2_like(scale={LUNG2_SCALE}): n={L64.n} nnz={L64.nnz}; "
           f"banded_lower({BAND_N}, bandwidth={BAND_WIDTH}, fill=1.0): "
-          f"nnz={band64.nnz} (generated in {time.perf_counter() - t0:.1f} s)")
+          f"nnz={band64.nnz}; banded_lower({WIDE_BAND_N}, bandwidth="
+          f"{WIDE_BAND_WIDTH}, fill=1.0): nnz={wide64.nnz} (generated in "
+          f"{time.perf_counter() - t0:.1f} s)")
 
     # Solvers of the paths, built once per dtype.
     t0 = time.perf_counter()
-    solvers, rw_solvers, blk_solvers = {}, {}, {}
+    solvers, rw_solvers, blk_solvers, wide_solvers = {}, {}, {}, {}
     for dt, L in mats.items():
         for tag, kw in VARIANTS.items():
             solvers[tag, dt] = SpTRSV.build_pair(L, device="cuda", **kw)
@@ -620,6 +639,8 @@ def main() -> int:
     t0 = time.perf_counter()
     for dt, B in bands.items():
         blk_solvers[dt] = SpTRSV.build_pair(B, device="cuda", strategy="blocked")
+        wide_solvers[dt] = SpTRSV.build_pair(wide_bands[dt], device="cuda",
+                                             strategy="blocked")
     t_blk = time.perf_counter() - t0
     fwd = solvers["pallas_level", "float64"][0]
     for s in solvers["pallas_level", "float64"]:
@@ -641,9 +662,9 @@ def main() -> int:
               + ", ".join(f"{t}={rw_solvers[t, 'float64'][int(s.transpose)].stats()['segments']}"
                           for t in VARIANTS)
               + f"; fused ELL K {max(sl.K for sl in rw_solvers['pallas_fused', 'float64'][int(s.transpose)].schedule.slabs)}")
-    for s in blk_solvers["float64"]:
+    for s in (*blk_solvers["float64"], *wide_solvers["float64"]):
         st = s.stats()
-        print(f"blocked transpose={int(s.transpose)}: {st['segments']} segments, "
+        print(f"blocked n={s.n} transpose={int(s.transpose)}: {st['segments']} segments, "
               f"{st['supernode_count']} supernodes, mean block "
               f"{st['mean_block_size']:.1f}, panel K max "
               f"{max(sl.K for sl in s.block_schedule.slabs)} "
@@ -660,6 +681,7 @@ def main() -> int:
     mixed = random_lower(MIXED_N, seed=5)
     walk_layouts = {
         "band": (blocked_layout(band64), band64),
+        "wide band": (blocked_layout(wide64), wide64),
         "lung2": (blocked_layout(L64), L64),
         "mixed": (blocked_layout(mixed, SupernodeConfig(**MIXED_SUPERNODES)), mixed)}
     walk_tables = {what: make_walk_table(walk_geometry(lay),
@@ -690,30 +712,42 @@ def main() -> int:
     def randn(shape, tdt):
         return torch.from_numpy(rng.standard_normal(shape)).to(dev, tdt)
 
+    # the level walk's whole coarsened tables: lung2 both directions, and a
+    # small lung2 transpose whose chains are wide
+    small_t = lung2_like(scale=WIDE_CHAIN_SCALE, seed=0)
+    small_t_sched = coarsen_schedule(build_schedule(
+        small_t.transpose(), build_reverse_level_sets(small_t), upper=True))
     for dt, L in mats.items():
         tdt = getattr(torch, dt)
         sched = solvers["pallas_level", dt][0].schedule
-        co_sched = coarsen_schedule(sched)
-        _, vals0, _, lay = make_packed_solver(co_sched, device="cuda")
-        cols = torch.from_numpy(lay.cols_flat).to(dev)
-        steps = segment_steps(lay)
-        plain = [s for s in lay.segments if s.kind == "plain"]
-        fat = max(plain, key=lambda s: s.R)
-        chain = next(s for s in lay.segments if s.kind == "chain")
-        pick = {(fat.off, fat.K, fat.R_pad)} | {
-            (int(o), chain.K, chain.R_pad) for o in chain.sub_offs}
-        sub = np.ascontiguousarray(
-            [r for r in steps if (int(r[0]), int(r[1]), int(r[2])) in pick])
-        check(len(sub) == 1 + chain.depth, "fat/chain step selection")
-        n_x = -(-lay.n_pad // 128) * 128
-        for m in WIDTHS:
-            shape = (n_x,) if m == 1 else (n_x, m)
-            x0, bhat = randn(shape, tdt), randn(shape, tdt)
-            xk, xr = x0.clone(), x0.clone()
-            level_cuda.level_walk(xk, bhat, cols, vals0[0], vals0[1], sub)
-            level_walk_ref(xr, bhat, cols, vals0[0], vals0[1], sub)
-            record("sptrsv_level" if m == 1 else "sptrsv_level_batched", dt,
-                   xk, xr, f"m={m:2d} fat level R={fat.R} + chain depth {chain.depth}")
+        level_cases = {
+            f"lung2 {d} coarsened": coarsen_schedule(
+                solvers["pallas_level", dt][t].schedule)
+            for t, d in enumerate(("forward", "transpose"))}
+        level_cases[f"lung2(scale={WIDE_CHAIN_SCALE}) transpose coarsened"] = \
+            small_t_sched
+        for what, co_sched in level_cases.items():
+            _, vals0, _, lay = make_packed_solver(co_sched, device="cuda")
+            table = level_table(lay, dev)
+            kinds = table.kinds()
+            cols = torch.from_numpy(lay.cols_flat).to(dev)
+            vf, df = vals0[0].to(tdt), vals0[1].to(tdt)
+            n_x = -(-lay.n_pad // 128) * 128
+            for m in WIDTHS:
+                shape = (n_x,) if m == 1 else (n_x, m)
+                x0, bhat = randn(shape, tdt), randn(shape, tdt)
+                xk, xr = x0.clone(), x0.clone()
+                name = "sptrsv_level" if m == 1 else "sptrsv_level_batched"
+                before = (level_cuda.launches[name], dict(level_cuda.launch_kinds))
+                level_cuda.level_walk(xk, bhat, cols, vf, df, table)
+                level_walk_ref(xr, bhat, cols.long(), vf, df, table)
+                got = {k: level_cuda.launch_kinds[k] - before[1][k] for k in kinds}
+                check(level_cuda.launches[name] - before[0] == table.num_segments
+                      and got == kinds, f"{name} {dt} {what}: launches {got}, "
+                      f"expected one per segment {kinds}")
+                record(name, dt, xk, xr, f"m={m:2d} {what}: {table.num_segments} "
+                       f"launches for {len(table.steps)} wavefronts {json.dumps(kinds)}, "
+                       f"K max {int(table.host[:, 1].max())}")
 
         flay = build_layout(sched)
         fcols = torch.from_numpy(flay.cols).to(dev)
@@ -821,6 +855,10 @@ def main() -> int:
                 trsm_cuda.blocked_walk(xk, bhat, wcols, wvals, wdinv, table)
                 blocked_walk_ref(xr, bhat, wcols.long(), wvals, wdinv, table)
                 cfg = trsm_cuda.walk_config(table, m, tdt)
+                # only the wide band's f64 panels are too wide to stage
+                check((cfg["global_panels"] > 0) == (what == "wide band" and dt == "float64"),
+                      f"walk {what} {dt} m={m}: {cfg['global_panels']} panels "
+                      "in device memory")
                 record("trsm_block_walk" if m == 1 else "trsm_block_walk_batched",
                        dt, xk, xr, f"m={m:2d} {what} ({table.num_segments} "
                        f"segments; {json.dumps(cfg)})")
@@ -982,13 +1020,15 @@ def main() -> int:
         check(path_launches["rewrite"][name] > 0,
               f"{name} never launched on the rewrite path")
 
-    # 3c: the blocked solves on the band
+    # 3c: the blocked solves on the band and the wide band
     reset_counts()
     t0 = time.perf_counter()
     blk_solves = {"trsm_block_walk": 0, "trsm_block_walk_batched": 0}
-    for dt, B in bands.items():
+    for what, dt in [(w, dt) for w in ("band", "wide band") for dt in bands]:
+        B = (bands if what == "band" else wide_bands)[dt]
+        pair = (blk_solvers if what == "band" else wide_solvers)[dt]
         A = scipy_csr(B)
-        A64 = scipy_csr(band64)
+        A64 = scipy_csr(band64 if what == "band" else wide64)
         # refresh_values' diagonal (|N(0, 0.3)| + 1) does not dominate 24
         # off-diagonals, and a forward solve over 110,592 rows of such
         # values overflows; the band's own values perturbed by 10% keep it
@@ -999,7 +1039,7 @@ def main() -> int:
         for m in WIDTHS:
             b_np = rng.standard_normal((B.n,) if m == 1 else (B.n, m)).astype(dt)
             b = torch.from_numpy(b_np).to(dev)
-            for s in blk_solvers[dt]:
+            for s in pair:
                 x = s.solve(b)
                 blk_solves["trsm_block_walk" if m == 1 else "trsm_block_walk_batched"] += 1
                 torch.cuda.synchronize()
@@ -1012,14 +1052,14 @@ def main() -> int:
                                           lower=not s.transpose)
                 agree = float(np.abs(xn - want).max() / np.abs(want).max())
                 check(res <= RESIDUAL_TOL[dt],
-                      f"blocked {dt} m={m} T={s.transpose}: residual {res:.3e}")
+                      f"blocked {what} {dt} m={m} T={s.transpose}: residual {res:.3e}")
                 check(agree <= BLOCKED_AGREE_TOL[dt],
-                      f"blocked {dt} m={m} T={s.transpose}: vs scipy {agree:.3e}")
-                print(f"phase 3c: blocked {dt} m={m:2d} transpose="
+                      f"blocked {what} {dt} m={m} T={s.transpose}: vs scipy {agree:.3e}")
+                print(f"phase 3c: blocked {what} {dt} m={m:2d} transpose="
                       f"{int(s.transpose)} residual {res:.2e} vs scipy f64 "
                       f"{agree:.2e}")
         b_np = rng.standard_normal((B.n, WIDTHS[-1])).astype(dt)
-        for s in blk_solvers[dt]:
+        for s in pair:
             ptrs = [v.data_ptr() for v in s._values]
             s.refresh(new)
             check(ptrs == [v.data_ptr() for v in s._values],
@@ -1028,9 +1068,9 @@ def main() -> int:
             blk_solves["trsm_block_walk_batched"] += 1
             res = residual(A2[s.transpose], xn, b_np.astype(np.float64))
             check(res <= RESIDUAL_TOL[dt],
-                  f"refresh blocked {dt} T={s.transpose}: residual {res:.3e}")
-            print(f"phase 3c: refresh blocked {dt} transpose={int(s.transpose)} "
-                  f"residual {res:.2e}")
+                  f"refresh blocked {what} {dt} T={s.transpose}: residual {res:.3e}")
+            print(f"phase 3c: refresh blocked {what} {dt} transpose="
+                  f"{int(s.transpose)} residual {res:.2e}")
             s.refresh(B.data)
     torch.cuda.synchronize()
     path_launches["blocked"] = counts()
@@ -1080,6 +1120,25 @@ def main() -> int:
                 if n:
                     per_solve[name][tag] = n
     print(f"launches per solve: {json.dumps(per_solve)}")
+    # level launches per pallas_level solve: one per segment
+    for tag, group in (("pallas_level", solvers), ("pallas_level+coarsen", solvers),
+                       ("rewrite:pallas_level", rw_solvers),
+                       ("rewrite:pallas_level+coarsen", rw_solvers)):
+        for s in group[tag.replace("rewrite:", ""), "float64"]:
+            got = {}
+            for m in WIDTHS:
+                reset_counts()
+                s.solve(torch.from_numpy(rng.standard_normal(
+                    (s.n,) if m == 1 else (s.n, m))).to(dev))
+                c = counts()
+                got[m] = c["sptrsv_level" if m == 1 else "sptrsv_level_batched"]
+                check(got[m] == s.stats()["segments"],
+                      f"{tag} transpose={int(s.transpose)} m={m}: {got[m]} level "
+                      f"launches for {s.stats()['segments']} segments")
+            print(f"launches per {tag} f64 solve, transpose={int(s.transpose)}: "
+                  f"{got[1]} (m=1), {got[WIDTHS[-1]]} (m={WIDTHS[-1]}) for "
+                  f"{s.analysis.num_levels} levels, "
+                  f"{s.stats()['segments']} segments")
     blk_per_solve = {name: n for name, n in per_solve.items() if "blocked" in n}
     check(blk_per_solve == {"trsm_block_walk": {"blocked": 1},
                             "trsm_block_walk_batched": {"blocked": 1}},
@@ -1112,14 +1171,23 @@ def main() -> int:
                 ms = time_ms(torch, lambda: s.solve(bb), warm=False)
                 print(f"phase 4: solve {'blocked (band)':29s} {dt} m={m:2d} "
                       f"transpose={int(s.transpose)}: {fmt_ms(ms)}")
+            bw = torch.from_numpy(rng.standard_normal(
+                (WIDE_BAND_N,) if m == 1 else (WIDE_BAND_N, m))).to(dev, getattr(torch, dt))
+            for s in wide_solvers[dt]:
+                ms = time_ms(torch, lambda: s.solve(bw), warm=False)
+                print(f"phase 4: solve {'blocked (wide band)':29s} {dt} m={m:2d} "
+                      f"transpose={int(s.transpose)}: {fmt_ms(ms)}")
 
     b1 = torch.from_numpy(rng.standard_normal(L64.n)).to(dev)
     for tag, s in (("pallas_level", solvers["pallas_level", "float64"][0]),
+                   ("pallas_level+coarsen", solvers["pallas_level+coarsen", "float64"][0]),
+                   ("pallas_level+coarsen", solvers["pallas_level+coarsen", "float64"][1]),
                    ("pallas_fused", solvers["pallas_fused", "float64"][0]),
                    ("levelset", solvers["levelset", "float64"][0]),
                    ("rewrite:pallas_level", rw_solvers["pallas_level", "float64"][0]),
                    ("rewrite:pallas_fused", rw_solvers["pallas_fused", "float64"][0])):
-        print(f"phase 4: profile {tag} f64 m=1 forward: "
+        print(f"phase 4: profile {tag} f64 m=1 "
+              f"{'transpose' if s.transpose else 'forward'}: "
               + device_busy(torch, lambda: s.solve(b1)))
     for m in WIDTHS:
         bb1 = torch.from_numpy(rng.standard_normal((BAND_N,) if m == 1 else (BAND_N, m))).to(dev)
@@ -1128,7 +1196,7 @@ def main() -> int:
 
     dt, L, tdt = "float64", L64, torch.float64
     _, vals0, _, lay = make_packed_solver(fwd.schedule, device="cuda")
-    steps = segment_steps(lay)
+    ltable = level_table(lay, dev)
     cols = torch.from_numpy(lay.cols_flat).to(dev)
     perm = torch.from_numpy(lay.perm).to(dev)
     n_x = -(-lay.n_pad // 128) * 128
@@ -1205,9 +1273,9 @@ def main() -> int:
         bound = solve_bound_ms(L, m, dt)
         row("sptrsv_level" if m == 1 else "sptrsv_level_batched",
             time_ms(torch, lambda: level_cuda.level_walk(
-                x, bhat, cols, vals0[0], vals0[1], steps)),
+                x, bhat, cols, vals0[0], vals0[1], ltable)),
             time_ms(torch, lambda: level_walk_ref(
-                x, bhat, cols, vals0[0], vals0[1], steps)), bound, lib_ms)
+                x, bhat, cols, vals0[0], vals0[1], ltable)), bound, lib_ms)
         if m > 1:
             print(f"phase 4: sptrsv_fused_batched: one cooperative launch of "
                   f"{fused_cuda.batched_grid(tdt)} blocks x 1024 threads on "
@@ -1264,6 +1332,30 @@ def main() -> int:
               f"plain {fmt_ms(time_ms(torch, lambda: block_apply_ref(dsyn, rsyn)))}, "
               f"torch.bmm {fmt_ms(time_ms(torch, lambda: torch.bmm(dsyn, rsyn3)))}, "
               f"bound {bnd[0]:.6f} ms ({bnd[1]})")
+    # the level walk on lung2's other tables of the paths, f64
+    level_tables = {}
+    for what, sched in (
+            ("forward coarsened", coarsen_schedule(fwd.schedule)),
+            ("transpose", solvers["pallas_level", dt][1].schedule),
+            ("transpose coarsened",
+             coarsen_schedule(solvers["pallas_level", dt][1].schedule))):
+        _, v0, _, tl = make_packed_solver(sched, device="cuda")
+        level_tables[what] = (tl, level_table(tl, dev),
+                              torch.from_numpy(tl.cols_flat).to(dev), v0)
+    for m in WIDTHS:
+        for what, (tl, tt, tc, v0) in level_tables.items():
+            shape = (-(-tl.n_pad // 128) * 128,) + (() if m == 1 else (m,))
+            xt = torch.zeros(shape, dtype=tdt, device=dev)
+            bt = torch.from_numpy(rng.standard_normal(shape)).to(dev)
+            kt = time_ms(torch, lambda: level_cuda.level_walk(
+                xt, bt, tc, v0[0], v0[1], tt))
+            pt = time_ms(torch, lambda: level_walk_ref(xt, bt, tc, v0[0], v0[1], tt))
+            print(f"phase 4: level walk lung2 {what} f64 m={m:2d}: {fmt_ms(kt)} "
+                  f"for {tt.num_segments} launches {json.dumps(tt.kinds())} "
+                  f"({kt[0] / tt.num_segments * 1e3:.3f} us per launch); plain "
+                  f"{fmt_ms(pt)}")
+    del level_tables
+
     t0 = time.perf_counter()
     ms, plain, bound, lib_ms = lm_times(torch, dev, rng, cfg, model, params,
                                         flash_cuda, gqa_attention_ref)

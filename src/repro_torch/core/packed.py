@@ -38,6 +38,7 @@ import torch
 
 from ..kernels.spmv_ell.ops import device_cols, device_row_len, spmv
 from ..kernels.sptrsv_level.ref import level_walk_ref
+from ..kernels.sptrsv_level.table import LevelTable, make_level_table
 from ..kernels.trsm_block.ops import blocked_walk, make_walk_table
 from .codegen import Schedule, build_ell, stack_sub_slabs
 from .rewrite import RewriteResult
@@ -50,7 +51,9 @@ __all__ = [
     "gather_src",
     "pack_values",
     "permute_rhs",
-    "segment_steps",
+    "segment_table",
+    "row_lengths",
+    "level_table",
     "make_packed_levelset_solver",
     "make_packed_rhs_transform",
     "PackedBlockSegment",
@@ -265,26 +268,67 @@ def permute_rhs(b: torch.Tensor, perm: torch.Tensor, length: int) -> torch.Tenso
     return bhat
 
 
-def segment_steps(layout: PackedLayout) -> np.ndarray:
-    """``(S, 5)`` int64 table with one row ``(o, K, R_pad, val_off,
-    diag_off)`` per wavefront, in execution order: one per plain segment,
-    ``depth`` per chain (at its ``sub_offs``).  ``val_off`` indexes both the
-    column and the value buffer."""
-    rows = []
+def segment_table(layout: PackedLayout) -> tuple:
+    """``(geometry, sub_offs)``: the ``(S, 7)`` int64 table with one row
+    ``(o, K, R_pad, val_off, diag_off, depth, sub_off)`` per segment, in
+    execution order (:data:`repro_torch.kernels.sptrsv_level.table.GEOMETRY`),
+    and the ``(D,)`` int64 write offsets of every chain's sub-steps, chain
+    by chain: a chain's row points at its first (``sub_off``); a plain
+    segment has depth 1 and ``sub_off`` −1.  ``val_off`` indexes both the
+    column and the value buffer, ``diag_off`` the diagonal and the row
+    lengths."""
+    rows, subs = [], []
     for seg in layout.segments:
-        offs = seg.sub_offs if seg.kind == "chain" else (seg.off,)
-        for t, o in enumerate(offs):
-            rows.append((int(o), seg.K, seg.R_pad,
-                         seg.val_off + t * seg.K * seg.R_pad,
-                         seg.diag_off + t * seg.R_pad))
-    return np.ascontiguousarray(np.array(rows, dtype=np.int64).reshape(-1, 5))
+        so = -1
+        if seg.kind == "chain":
+            so = sum(map(len, subs))
+            subs.append(seg.sub_offs)
+        rows.append((seg.off, seg.K, seg.R_pad, seg.val_off, seg.diag_off,
+                     seg.depth, so))
+    return (np.array(rows, dtype=np.int64).reshape(-1, 7),
+            np.concatenate(subs).astype(np.int64) if subs
+            else np.zeros(0, dtype=np.int64))
+
+
+def row_lengths(layout: PackedLayout) -> np.ndarray:
+    """Each packed row's count of real entries (``vals_src >= 0``), int32,
+    indexed like ``diag_flat``.  Raises ``ValueError`` unless every slot
+    past a row's length is a pad: no source, value 0, and the column of the
+    row's first pad (the level kernel adds that one pad term instead of
+    all of them).  It depends on the pattern only, so a value refresh
+    leaves it as it is."""
+    out = np.zeros(layout.diag_flat.size, dtype=np.int32)
+    for seg in layout.segments:
+        d, K, Rp = seg.depth, seg.K, seg.R_pad
+        if K == 0:
+            continue
+        span = slice(seg.val_off, seg.val_off + d * K * Rp)
+        src = layout.vals_src[span].reshape(d, K, Rp)
+        cols = layout.cols_flat[span].reshape(d, K, Rp)
+        vals = layout.vals_flat[span].reshape(d, K, Rp)
+        n = (src >= 0).sum(axis=1)
+        past = np.arange(K)[None, :, None] >= n[:, None, :]
+        pad_col = np.take_along_axis(cols, np.minimum(n, K - 1)[:, None, :], 1)
+        if ((src >= 0) & past).any() or (vals[past] != 0).any() \
+                or (cols != pad_col)[past].any():
+            raise ValueError(f"segment at {seg.off}: a slot past its row "
+                             "length is not a pad")
+        out[seg.diag_off: seg.diag_off + d * Rp] = n.ravel()
+    return out
+
+
+def level_table(layout: PackedLayout, device) -> LevelTable:
+    """The level walk's table of ``layout`` on ``device``: one row per
+    segment, the chains' sub-step offsets and the row lengths."""
+    return make_level_table(*segment_table(layout), row_lengths(layout),
+                            device)
 
 
 def make_packed_levelset_solver(layout: PackedLayout, *, device):
     """Permuted-space level-set executor in plain torch ops: one
     gather/FMA/divide per wavefront (the level kernel's plain version,
     :func:`repro_torch.kernels.sptrsv_level.ref.level_walk_ref`), a Python
-    loop of ``depth`` steps per chain.
+    loop over a chain's ``depth`` sub-steps.
 
     Returns ``solve(b, values)`` with ``values = (vals_flat, diag_flat)`` as
     tensors on ``device``.  ``b`` may be ``(n,)`` or ``(n, m)``; values are
@@ -294,14 +338,14 @@ def make_packed_levelset_solver(layout: PackedLayout, *, device):
     cols_flat = torch.from_numpy(layout.cols_flat.astype(np.int64)).to(dev)
     perm = torch.from_numpy(layout.perm).to(dev)
     pos = torch.from_numpy(layout.pos).to(dev)
-    steps = segment_steps(layout)
+    table = level_table(layout, dev)
 
     def solve(b: torch.Tensor, values) -> torch.Tensor:
         vals_flat, diag_flat = values
         bhat = permute_rhs(b, perm, n_pad)
         x = torch.zeros_like(bhat)
         level_walk_ref(x, bhat, cols_flat, vals_flat.to(b.dtype),
-                       diag_flat.to(b.dtype), steps)
+                       diag_flat.to(b.dtype), table)
         return x.index_select(0, pos)
 
     return solve

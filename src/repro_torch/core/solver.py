@@ -12,15 +12,15 @@ Strategies ported so far (all in ``layout="permuted"``):
 
 ``levelset``       the packed level-set executor in plain torch ops — the
                    JAX package's default, kept as the baseline
-``pallas_level``   one CUDA level-kernel launch per wavefront
-                   (:mod:`repro_torch.kernels.sptrsv_level`); a coarsened
-                   chain is ``depth`` launches
+``pallas_level``   one CUDA level-kernel launch per segment
+                   (:mod:`repro_torch.kernels.sptrsv_level`): a wavefront,
+                   or a coarsened chain walked by one thread block
 ``pallas_fused``   the whole solve as one CUDA launch
                    (:mod:`repro_torch.kernels.sptrsv_fused`)
-``blocked``        supernodal: per super-level one panel SpMV launch
-                   (:mod:`repro_torch.kernels.spmv_ell`) and one batched
-                   dense diagonal-block apply launch
-                   (:mod:`repro_torch.kernels.trsm_block`)
+``blocked``        supernodal: the whole solve as one CUDA launch that
+                   walks every super-level's panel update and batched
+                   dense diagonal-block apply in order
+                   (:mod:`repro_torch.kernels.trsm_block`, the blocked walk)
 
 ``rewrite=RewriteConfig(...)`` applies the paper's equation rewriting
 before any of them: the solve runs on the rewritten ``L'`` after the RHS

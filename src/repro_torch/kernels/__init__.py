@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their plain torch
 versions.
 
-* ``sptrsv_level``  — one wavefront as gather/FMA/divide over an ELL slab
+* ``sptrsv_level``  — one wavefront as gather/FMA/divide over an ELL slab,
+                      or a coarsened chain of them, per launch
 * ``sptrsv_fused``  — the whole solve in one launch (one thread block walking
                       the wavefront spans with a barrier between them)
 * ``spmv_ell``      — ELL SpMV ``y = M v``: the rewrite's ``b' = E b`` and

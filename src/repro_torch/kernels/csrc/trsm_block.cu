@@ -57,8 +57,14 @@
 //     they reach shared memory by cp.async, 16-byte copies where aligned,
 //     else element copies.  The copies of the items one or two ahead are
 //     in flight while an item computes (two or three stages, as many as
-//     fit in 227 KB; one where two do not; the host refuses a table where
-//     one does not).  nb shrinks where K makes a stage large.
+//     fit in 227 KB; one where two do not).  nb shrinks where K makes a
+//     stage large.
+//   * A wide panel: where one diagonal block's stage with its panel does
+//     not fit in the shared memory left beside the rhs buffer (f64 at
+//     T = 64: K above ~232), the segment's items stage only Dinv, lane
+//     rows and bhat, and the panel terms read cols / vals from global
+//     memory.  A stage's size then does not grow with K, so any panel
+//     width runs in the one launch.
 //   * Per item: wait for its copies, __syncthreads() (the previous item is
 //     then done with its buffer, rhs and x), start the copies of the item
 //     a stage ahead, then the panel, __syncthreads(), the apply.  The
@@ -166,7 +172,11 @@ constexpr int kSplitK = 8;        // most threads sharing one lane's panel row
 constexpr int kUnroll = 8;        // panel entries of a thread in flight
 constexpr int kGeo = 8;           // table columns
 constexpr long long kMaxSmem = 232448;   // a block's shared memory on Hopper
-constexpr int kTooBig = -2;       // a stage does not fit: the host refuses
+// One diagonal block's stage without its panel does not fit: the host
+// refuses.  That stage is T * ((T + 2) * 8 + 68) + 96 bytes in f64 at 8
+// columns (38,240 at the supernode detector's default max_block of 64), so
+// only T above ~160 (f64) or ~230 (f32) meets it.
+constexpr int kTooBig = -2;
 
 // One row of the segment table.
 struct Geo {
@@ -195,14 +205,33 @@ __host__ __device__ inline long long stage_fixed(long long K, int sz) {
   return 3 * K * (4 + sz) + 96;
 }
 
+// A segment's stage size: *per bytes a diagonal block and *fixed bytes,
+// with its panel where one block's stage with it fits in `pcap` bytes
+// (*ks = K), else without it (*ks = 0: the panel is read from global
+// memory).
+__host__ __device__ inline void stage_size(long long T, int K, long long mc,
+                                           int sz, long long pcap, long long* per,
+                                           long long* fixed, int* ks) {
+  *per = stage_per(T, K, mc, sz);
+  *fixed = stage_fixed(K, sz);
+  *ks = *per + *fixed <= pcap ? K : 0;
+  if (*ks < K) {
+    *per -= T * K * (4 + sz);
+    *fixed = stage_fixed(0, sz);
+  }
+}
+
 // Diagonal blocks per work item: a thread per (lane, column) where that
-// fills the block, fewer where the stage would not fit.  32-bit: the host
-// refuses a table where one block's stage exceeds the shared memory.
+// fills the block, fewer where the stage would not fit; `ks` gets the
+// panel rows the items stage (stage_size).  32-bit: the host refuses a
+// table where one block's stage exceeds the shared memory.
 __host__ __device__ inline int blocks_per_item(int B, int T, int K, int mc,
-                                               int sz, int stage, int nt) {
+                                               int sz, int stage, int nt,
+                                               long long pcap, int* ks) {
   int nb = nt / (T * mc);
-  const int per = static_cast<int>(stage_per(T, K, mc, sz));
-  const int fit = (stage - static_cast<int>(stage_fixed(K, sz))) / per;
+  long long per, fixed;
+  stage_size(T, K, mc, sz, pcap, &per, &fixed, ks);
+  const int fit = (stage - static_cast<int>(fixed)) / static_cast<int>(per);
   if (nb > fit) nb = fit;
   if (nb > B) nb = B;
   return nb < 1 ? 1 : nb;
@@ -219,6 +248,7 @@ struct Args {
   const int* lane_row;       // lane -> row in its segment, -1 on pads
   unsigned* bar;             // grid barrier count (cooperative launch only)
   long long ldx, ldb;
+  long long pcap;            // a panel is staged where a block's stage fits this
   int stage;                 // bytes per stage
   int S, m, mc, G, nstage;
   int nt;                    // threads per block
@@ -239,15 +269,17 @@ __device__ __forceinline__ Geo geo_of(const long long* tab, int s) {
 }
 
 // One work item: chunk c = t / G of segment s (blocks b0 .. b0 + nbc) for
-// column group gi = t % G.
+// column group gi = t % G; its staged panel rows ks (K or 0).
 struct Item {
   Geo g;
-  int s, t, b0, nbc, gi;
+  int s, t, b0, nbc, gi, ks;
 };
 
 template <typename T>
 __device__ __forceinline__ int items_of(const Args<T>& a, const Geo& g) {
-  const int nb = blocks_per_item(g.B, g.T, g.K, a.mc, sizeof(T), a.stage, a.nt);
+  int ks;
+  const int nb = blocks_per_item(g.B, g.T, g.K, a.mc, sizeof(T), a.stage, a.nt,
+                                 a.pcap, &ks);
   return (g.B + nb - 1) / nb;
 }
 
@@ -258,7 +290,8 @@ __device__ __forceinline__ Item item_at(const Args<T>& a, int s, int t,
   it.g = g;
   it.s = s;
   it.t = t;
-  const int nb = blocks_per_item(g.B, g.T, g.K, a.mc, sizeof(T), a.stage, a.nt);
+  const int nb = blocks_per_item(g.B, g.T, g.K, a.mc, sizeof(T), a.stage, a.nt,
+                                 a.pcap, &it.ks);
   const int c = t / a.G;
   it.gi = t - c * a.G;
   it.b0 = c * nb;
@@ -358,8 +391,8 @@ __device__ void copy_tile(void* dst, int dld, const void* src, long long sld,
 template <typename T>
 struct Stage {
   T* d;        // (L, ld) Dinv rows of the item's blocks
-  int* cols;   // (K, Lp)
-  T* vals;     // (K, Lp)
+  int* cols;   // (Ks, Lp): the staged panel, Ks = K or 0
+  T* vals;     // (Ks, Lp)
   int* rows;   // (L,) lane -> row, -1 on pads
   T* b;        // (R, mcw) bhat rows, where the item is its whole segment
   int L, Lp, ld;
@@ -389,12 +422,13 @@ __device__ __forceinline__ Stage<T> stage_at(unsigned char* base, int L,
 template <typename T>
 __device__ void stage_item(const Args<T>& a, const Item& it, unsigned char* base) {
   const Geo& g = it.g;
-  const Stage<T> st = stage_at<T>(base, it.nbc * g.T, g.T, g.K);
+  const int Ks = it.ks;
+  const Stage<T> st = stage_at<T>(base, it.nbc * g.T, g.T, Ks);
   const long long BT = static_cast<long long>(g.B) * g.T;
   const long long lane0 = static_cast<long long>(it.b0) * g.T;
   copy_tile<sizeof(T)>(st.d, st.ld, a.dinv + g.doff + lane0 * g.T, g.T, st.L, g.T);
-  copy_tile<4>(st.cols, st.Lp, a.cols + g.voff + lane0, BT, g.K, st.L);
-  copy_tile<sizeof(T)>(st.vals, st.Lp, a.vals + g.voff + lane0, BT, g.K, st.L);
+  copy_tile<4>(st.cols, st.Lp, a.cols + g.voff + lane0, BT, Ks, st.L);
+  copy_tile<sizeof(T)>(st.vals, st.Lp, a.vals + g.voff + lane0, BT, Ks, st.L);
   copy_tile<4>(st.rows, st.L, a.lane_row + g.loff + lane0, st.L, 1, st.L);
   if (it.nbc == g.B) {       // the whole segment: its rows are [off, off + R)
     const int j0 = it.gi * a.mc;
@@ -407,6 +441,36 @@ template <bool kGrid, typename T>
 __device__ __forceinline__ T load_x(const T* p) {
   if constexpr (kGrid) return __ldcg(p);
   return *p;
+}
+
+// Thread p's panel terms of one (lane, column) of a wide panel, read
+// from device memory: entries k = p, p + ks, ... of the lane's K at
+// pc[k * ld] / pv[k * ld], kUnroll of them in flight; a term whose
+// position is at or past `off` is skipped.  Not inlined: the staged
+// panel's loop in run_item keeps its shared-memory loads.
+template <typename T, bool kGrid>
+__device__ __noinline__ T panel_terms_global(const int* pc, const T* pv,
+                                             long long ld, int K, int p, int ks,
+                                             long long off, const T* xj,
+                                             long long ldx) {
+  T acc = T(0);
+  for (int k0 = p; k0 < K; k0 += ks * kUnroll) {
+    long long c[kUnroll];
+    T v[kUnroll], xv[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int k = k0 + u * ks;
+      c[u] = k < K ? __ldg(pc + k * ld) : off;
+      v[u] = k < K ? __ldg(pv + k * ld) : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      xv[u] = c[u] < off ? load_x<kGrid>(xj + c[u] * ldx) : T(0);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (c[u] < off) acc += v[u] * xv[u];
+  }
+  return acc;
 }
 
 // A thread's place in an item of shape (L lanes, mcw columns, K panel
@@ -460,7 +524,8 @@ __device__ void run_item(const Args<T>& a, const Item& it, unsigned char* base,
                          Map& mp, T* rhs) {
   const int Tb = it.g.T;
   const int K = it.g.K;
-  const Stage<T> st = stage_at<T>(base, it.nbc * Tb, Tb, K);
+  const int Ks = it.ks;
+  const Stage<T> st = stage_at<T>(base, it.nbc * Tb, Tb, Ks);
   const long long off = it.g.off;
   const int j0 = it.gi * a.mc;
   const int mcw = min(a.mc, a.m - j0);
@@ -491,21 +556,30 @@ __device__ void run_item(const Args<T>& a, const Item& it, unsigned char* base,
       if (p == 0 && row >= 0)
         bv = whole ? st.b[row * mcw + jj]
                    : __ldg(a.bhat + (off + row) * a.ldb + j0 + jj);
-      for (int k0 = p; k0 < K; k0 += ks * kUnroll) {
-        long long c[kUnroll];
-        T v[kUnroll], xv[kUnroll];
+      if (Ks < K) {
+        // a wide panel stays in global memory: (K, B*T) from lane 0
+        const long long lane = static_cast<long long>(it.b0) * Tb + l;
+        acc = panel_terms_global<T, kGrid>(
+            a.cols + it.g.voff + lane, a.vals + it.g.voff + lane,
+            static_cast<long long>(it.g.B) * Tb, K, p, ks, off, x + j0 + jj,
+            a.ldx);
+      } else {
+        for (int k0 = p; k0 < K; k0 += ks * kUnroll) {
+          long long c[kUnroll];
+          T v[kUnroll], xv[kUnroll];
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const int k = k0 + u * ks;
-          c[u] = k < K ? st.cols[k * st.Lp + l] : off;
-          v[u] = k < K ? st.vals[k * st.Lp + l] : T(0);
+          for (int u = 0; u < kUnroll; ++u) {
+            const int k = k0 + u * ks;
+            c[u] = k < K ? st.cols[k * st.Lp + l] : off;
+            v[u] = k < K ? st.vals[k * st.Lp + l] : T(0);
+          }
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u)
+            xv[u] = c[u] < off ? load_x<kGrid>(x + c[u] * a.ldx + j0 + jj) : T(0);
+#pragma unroll
+          for (int u = 0; u < kUnroll; ++u)
+            if (c[u] < off) acc += v[u] * xv[u];
         }
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u)
-          xv[u] = c[u] < off ? load_x<kGrid>(x + c[u] * a.ldx + j0 + jj) : T(0);
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u)
-          if (c[u] < off) acc += v[u] * xv[u];
       }
     }
     for (int w = ks / 2; w > 0; w /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, w);
@@ -664,33 +738,45 @@ __global__ void __launch_bounds__(kMaxThreads) walk_kernel(const Args<T> a) {
 }
 
 // How a walk launches: out[] = {cooperative, grid, smem bytes, stages,
-// grid barriers, column groups, threads per block}.  A block of a few
-// columns is latency bound and runs 256 threads (fewer instructions per
-// segment); from 4 columns up it runs 512, with three stages where they
-// fit.
+// grid barriers, column groups, threads per block, segments whose panel
+// stays in global memory}.  A block of a few columns is latency bound and
+// runs 256 threads (fewer instructions per segment); from 4 columns up it
+// runs 512, with three stages where they fit.  A segment's panel is staged
+// where one block's stage with it fits in all the shared memory beside the
+// rhs buffer, so a table that ran before keeps its stages.
 template <typename T>
-int plan(const long long* tab, int S, int m, long long* out, int* stage_out) {
+int plan(const long long* tab, int S, int m, long long* out, int* stage_out,
+         long long* pcap_out) {
   if (S < 1 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int sz = sizeof(T);
   const int mc = m < kCols ? m : kCols;
   const int G = (m + mc - 1) / mc;
   const int nt = mc >= 4 ? kMaxThreads : kMaxThreads / 2;
-  long long want = 16, need1 = 16, Tmax = 1;
+  long long Tmax = 1;
+  for (int s = 0; s < S; ++s) {
+    const long long T_ = tab[static_cast<long long>(s) * kGeo + 3];
+    if (T_ > Tmax) Tmax = T_;
+  }
+  const long long rhs = rup((nt > Tmax * mc ? nt : Tmax * mc) * sz, 16);
+  const long long avail = kMaxSmem - rhs;
+  const long long pcap = avail;
+  long long want = 16, need1 = 16, global_panels = 0;
   for (int s = 0; s < S; ++s) {
     const long long* r = tab + static_cast<long long>(s) * kGeo;
-    const long long B = r[2], T_ = r[3], K = r[4];
+    const long long B = r[2], T_ = r[3];
+    const int K = static_cast<int>(r[4]);
     long long nb = nt / (T_ * mc);
     if (nb > B) nb = B;
     if (nb < 1) nb = 1;
-    const long long per = stage_per(T_, K, mc, sz), fixed = stage_fixed(K, sz);
+    long long per, fixed;
+    int Ks;
+    stage_size(T_, K, mc, sz, pcap, &per, &fixed, &Ks);
+    global_panels += Ks < K;
     if (nb * per + fixed > want) want = nb * per + fixed;
     if (per + fixed > need1) need1 = per + fixed;
-    if (T_ > Tmax) Tmax = T_;
   }
   want = rup(want, 16);
   need1 = rup(need1, 16);
-  const long long rhs = rup((nt > Tmax * mc ? nt : Tmax * mc) * sz, 16);
-  const long long avail = kMaxSmem - rhs;
   long long stage;
   int nstage;
   if (nt == kMaxThreads && 3 * want <= avail) {
@@ -712,9 +798,10 @@ int plan(const long long* tab, int S, int m, long long* out, int* stage_out) {
   bool coop = false, prev = false;
   for (int s = 0; s < S; ++s) {
     const long long* r = tab + static_cast<long long>(s) * kGeo;
+    int ks;
     const int nb = blocks_per_item(static_cast<int>(r[2]), static_cast<int>(r[3]),
                                    static_cast<int>(r[4]), mc, sz,
-                                   static_cast<int>(stage), nt);
+                                   static_cast<int>(stage), nt, pcap, &ks);
     const long long chunks = (r[2] + nb - 1) / nb;
     const bool multi = chunks > 1;
     coop = coop || multi;
@@ -730,7 +817,9 @@ int plan(const long long* tab, int S, int m, long long* out, int* stage_out) {
   out[4] = coop ? barriers : 0;
   out[5] = G;
   out[6] = nt;
+  out[7] = global_panels;
   *stage_out = static_cast<int>(stage);
+  *pcap_out = pcap;
   return 0;
 }
 
@@ -744,8 +833,9 @@ int allow_smem(long long smem) {
 
 // Fills out[] as plan() does, with out[1] the grid the launch uses.
 template <typename T>
-int config(const long long* tab, int S, int m, long long* out, int* stage) {
-  int rc = plan<T>(tab, S, m, out, stage);
+int config(const long long* tab, int S, int m, long long* out, int* stage,
+           long long* pcap) {
+  int rc = plan<T>(tab, S, m, out, stage, pcap);
   if (rc != 0 || !out[0]) return rc;
   rc = allow_smem<T, true>(out[2]);
   if (rc != 0) return rc;
@@ -772,11 +862,11 @@ int launch(T* x, const T* bhat, const int* cols, const T* vals, const T* dinv,
            const int* lane_row, int S, int m, long long ldx, long long ldb,
            unsigned* bar, cudaStream_t stream) {
   if (S == 0 || m == 0) return 0;
-  long long cfg[7];
+  long long cfg[8], pcap = 0;
   int stage = 0;
-  int rc = config<T>(tab_host, S, m, cfg, &stage);
+  int rc = config<T>(tab_host, S, m, cfg, &stage, &pcap);
   if (rc != 0) return rc;
-  Args<T> a{x, bhat, cols, vals, dinv, tab_dev, lane_row, bar, ldx, ldb,
+  Args<T> a{x, bhat, cols, vals, dinv, tab_dev, lane_row, bar, ldx, ldb, pcap,
             stage, S, m, m < kCols ? m : kCols, static_cast<int>(cfg[5]),
             static_cast<int>(cfg[3]), static_cast<int>(cfg[6])};
   if (!cfg[0]) {
@@ -833,16 +923,18 @@ extern "C" int trsm_block_walk_f64(double* x, const double* bhat, const int* col
 
 // The launch a walk of this table at m columns makes on the current card:
 // out = {cooperative, grid blocks, shared bytes, stages, grid barriers,
-// column groups, threads per block}.  Returns -2 where a stage does not
-// fit.
+// column groups, threads per block, segments whose panel stays in global
+// memory}.  Returns -2 where one diagonal block's Dinv stage does not fit.
 extern "C" int trsm_block_walk_config_f32(const long long* tab, int S, int m,
                                           long long* out) {
   int stage;
-  return walk::config<float>(tab, S, m, out, &stage);
+  long long pcap;
+  return walk::config<float>(tab, S, m, out, &stage, &pcap);
 }
 
 extern "C" int trsm_block_walk_config_f64(const long long* tab, int S, int m,
                                           long long* out) {
   int stage;
-  return walk::config<double>(tab, S, m, out, &stage);
+  long long pcap;
+  return walk::config<double>(tab, S, m, out, &stage, &pcap);
 }

@@ -1,1 +1,2 @@
-"""Level kernel: one SpTRSV wavefront per launch."""
+"""Level kernel: one SpTRSV segment (a wavefront, or a coarsened chain of
+them) per launch."""

@@ -3,12 +3,13 @@
 
 :func:`make_packed_solver` packs a :class:`Schedule` with the kernel's row
 padding (the same geometry as the JAX package's ``sptrsv_level`` packing)
-and turns every wavefront into one launch: a plain segment is one step, a
-coarsened chain is ``depth`` steps at its ``sub_offs``
-(:func:`repro_torch.core.packed.segment_steps`).  The step table is built
-once; a solve hands it to :func:`level_solve`, which launches the
-CUDA kernel for tensors on the card and runs the plain torch version for
-tensors on the CPU.
+and turns every segment into one launch: a plain segment over as many
+blocks as it needs, a coarsened chain on one block that walks its
+``depth`` sub-steps (:func:`repro_torch.core.packed.level_table`, which
+also holds each row's count of real entries).  The table is built once; a
+solve hands it to :func:`level_solve`, which launches the CUDA kernels for
+tensors on the card and runs the plain torch version for tensors on the
+CPU.
 
 Direction-agnostic: a backward (transpose) schedule runs through the same
 kernel.
@@ -19,10 +20,11 @@ import numpy as np
 import torch
 
 from ...core.codegen import Schedule
-from ...core.packed import build_packed_layout, pack_values, permute_rhs, segment_steps
+from ...core.packed import build_packed_layout, level_table, pack_values, permute_rhs
 from ..backend import resolve_device
 from . import cuda
 from .ref import level_walk_ref
+from .table import LevelTable
 
 __all__ = ["make_packed_solver", "level_solve"]
 
@@ -31,13 +33,13 @@ def _ceil_to(v: int, m: int) -> int:
     return int(np.ceil(v / m) * m) if v else m
 
 
-def level_solve(x, bhat, cols, vals, diag, steps: np.ndarray) -> None:
-    """Run the wavefront steps in place into ``x``: the CUDA kernel for
+def level_solve(x, bhat, cols, vals, diag, table: LevelTable) -> None:
+    """Run the table's segments in place into ``x``: the CUDA kernels for
     tensors on the card, the plain torch version for tensors on the CPU."""
     if x.is_cuda:
-        cuda.level_walk(x, bhat, cols, vals, diag, steps)
+        cuda.level_walk(x, bhat, cols, vals, diag, table)
     elif x.device.type == "cpu":
-        level_walk_ref(x, bhat, cols, vals, diag, steps)
+        level_walk_ref(x, bhat, cols, vals, diag, table)
     else:
         raise ValueError(f"no level kernel for device {x.device}")
 
@@ -62,7 +64,7 @@ def make_packed_solver(schedule: Schedule, *, device="cuda",
     # A CUDA gather does not clip: every column position must lie in x̂.
     if layout.cols_flat.size and int(layout.cols_flat.max()) >= n_x:
         raise RuntimeError("packed column position outside x̂")
-    steps = segment_steps(layout)
+    table = level_table(layout, dev)
     # int32 positions for the kernel, int64 for torch indexing on the CPU
     cols_np = layout.cols_flat if dev.type == "cuda" \
         else layout.cols_flat.astype(np.int64)
@@ -82,7 +84,7 @@ def make_packed_solver(schedule: Schedule, *, device="cuda",
         df = diag_flat.to(dt)
         bhat = permute_rhs(b, perm, n_pad)
         x = torch.zeros((n_x,) + tuple(b.shape[1:]), dtype=dt, device=b.device)
-        level_solve(x, bhat, cols, vf, df, steps)
+        level_solve(x, bhat, cols, vf, df, table)
         return x.index_select(0, pos)
 
     return solve, values0, repack, layout

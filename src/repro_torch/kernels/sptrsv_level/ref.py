@@ -3,8 +3,7 @@ in ordinary tensor ops.  The wrapper in :mod:`.ops` runs them for tensors on
 the CPU; on the card they are the yardstick the kernel is held against."""
 from __future__ import annotations
 
-import numpy as np
-import torch
+from .table import LevelTable
 
 __all__ = ["level_solve_ref", "level_walk_ref"]
 
@@ -21,13 +20,14 @@ def level_solve_ref(x_pad, bl, cols, vals, diag):
     return (bl - s) / diag
 
 
-def level_walk_ref(x, bhat, cols, vals, diag, steps: np.ndarray) -> None:
-    """A step table (:func:`repro_torch.core.packed.segment_steps`) run with
-    :func:`level_solve_ref`, in place into ``x``: step
-    ``(o, K, R_pad, val_off, diag_off)`` writes ``x[o : o + R_pad]`` — what
+def level_walk_ref(x, bhat, cols, vals, diag, table: LevelTable) -> None:
+    """A segment table run wavefront by wavefront with
+    :func:`level_solve_ref`, in place into ``x``: every step
+    ``(o, K, R_pad, val_off, diag_off)`` of :attr:`LevelTable.steps` (a
+    chain's sub-steps in order) writes ``x[o : o + R_pad]`` — what
     :func:`repro_torch.kernels.sptrsv_level.cuda.level_walk` does on the
-    card."""
-    for o, K, Rp, vo, do in steps.tolist():
+    card, one launch per segment."""
+    for o, K, Rp, vo, do in table.steps.tolist():
         x[o: o + Rp] = level_solve_ref(
             x, bhat[o: o + Rp], cols[vo: vo + K * Rp].view(K, Rp),
             vals[vo: vo + K * Rp].view(K, Rp), diag[do: do + Rp])

@@ -27,7 +27,8 @@ launches = {"trsm_block_apply": 0, "trsm_block_apply_batched": 0,
 
 # Shared memory one thread block may use on Hopper (227 KB)
 MAX_SMEM_BYTES = 232_448
-# what the walk's host code returns where a stage does not fit
+# what the walk's host code returns where one diagonal block's Dinv stage
+# does not fit (T above ~160 in f64)
 _WALK_TOO_BIG = -2
 
 
@@ -86,8 +87,8 @@ def _walk_entry(dtype: torch.dtype):
 
 def _walk_rc(rc: int) -> None:
     if rc == _WALK_TOO_BIG:
-        raise ValueError("a diagonal block with its panel does not fit in "
-                         "shared memory")
+        raise ValueError("a diagonal block's inverse does not fit in shared "
+                         "memory")
     raise_on_error("trsm_block_walk", rc)
 
 
@@ -96,19 +97,20 @@ def walk_config(table: WalkTable, m: int, dtype: torch.dtype) -> dict:
     columns: ``cooperative`` (a grid with barriers, else one block per
     column group), ``grid`` blocks, ``smem`` bytes, ``stages`` (2 or 3:
     the next items' copies overlap this one's work), ``barriers`` per
-    launch, column ``groups`` and ``threads`` per block.  Cached on the
-    table."""
+    launch, column ``groups``, ``threads`` per block and ``global_panels``,
+    the segments whose panel is too wide to stage and is read from device
+    memory.  Cached on the table."""
     key = (m, dtype)
     if key not in table.configs:
         fn = getattr(build.load("trsm_block"),
                      f"trsm_block_walk_config_{FLOAT_SUFFIX[dtype]}")
         fn.argtypes = [P, I32, I32, P]
         fn.restype = I32
-        out = (ctypes.c_longlong * 7)()
+        out = (ctypes.c_longlong * 8)()
         _walk_rc(fn(table.host.ctypes.data, table.num_segments, m, out))
         table.configs[key] = dict(zip(
             ("cooperative", "grid", "smem", "stages", "barriers", "groups",
-             "threads"), (bool(out[0]), *map(int, out[1:]))))
+             "threads", "global_panels"), (bool(out[0]), *map(int, out[1:]))))
     return table.configs[key]
 
 

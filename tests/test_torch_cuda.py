@@ -17,10 +17,10 @@ from repro_torch.core import RewriteConfig, SpTRSV
 from repro_torch.core.coarsen import build_block_schedule, coarsen_schedule
 from repro_torch.core.codegen import build_ell, build_schedule
 from repro_torch.core.levels import (SupernodeConfig, build_level_sets,
-                                     detect_supernodes)
-from repro_torch.core.packed import (build_packed_blocked_layout,
-                                     pack_blocked_values, segment_steps,
-                                     walk_geometry)
+                                     build_reverse_level_sets, detect_supernodes)
+from repro_torch.core.csr import CSRMatrix
+from repro_torch.core.packed import (build_packed_blocked_layout, level_table,
+                                     pack_blocked_values, walk_geometry)
 from repro_torch.core.rewrite import rewrite_matrix
 from repro_torch.kernels.flash_attn import cuda as flash_cuda
 from repro_torch.kernels.flash_attn.ref import attention_ref, gqa_attention_ref
@@ -33,6 +33,7 @@ from repro_torch.kernels.sptrsv_fused.ref import fused_solve_ref
 from repro_torch.kernels.sptrsv_level import cuda as level_cuda
 from repro_torch.kernels.sptrsv_level.ops import make_packed_solver
 from repro_torch.kernels.sptrsv_level.ref import level_walk_ref
+from repro_torch.kernels.sptrsv_level.table import WIDE_K
 from repro_torch.kernels.trsm_block import cuda as trsm_cuda
 from repro_torch.kernels.trsm_block.ops import make_walk_table
 from repro_torch.kernels.trsm_block.ref import block_apply_ref, blocked_walk_ref
@@ -72,7 +73,7 @@ def _rel(a, b):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_level_kernel_matches_plain(card, dtype, m):
     _, vals, _, lay = make_packed_solver(_schedule(True), device=card)
-    steps = segment_steps(lay)
+    table = level_table(lay, card)
     cols = torch.from_numpy(lay.cols_flat).to(card)
     g = torch.Generator().manual_seed(0)
     shape = (lay.n_pad + 128,) + (() if m == 1 else (m,))
@@ -82,11 +83,87 @@ def test_level_kernel_matches_plain(card, dtype, m):
     key = "sptrsv_level" if m == 1 else "sptrsv_level_batched"
     before = level_cuda.launches[key]
     xk, xr = x0.clone(), x0.clone()
-    level_cuda.level_walk(xk, bhat, cols, vf, df, steps)
-    level_walk_ref(xr, bhat, cols, vf, df, steps)
+    level_cuda.level_walk(xk, bhat, cols, vf, df, table)
+    level_walk_ref(xr, bhat, cols, vf, df, table)
     torch.cuda.synchronize()
-    assert level_cuda.launches[key] - before == len(steps)
+    assert level_cuda.launches[key] - before == len(lay.segments)
     assert _rel(xk, xr) <= KERNEL_TOL[dtype]
+
+
+def _arrow(n=3000, wide=1500, seed=0):
+    """A random lower factor (up to 3 entries left of the diagonal) whose
+    last row has ``wide`` entries left of it."""
+    rng = np.random.default_rng(seed)
+    rows = [np.unique(rng.integers(0, i, size=min(i, 3))) if i else
+            np.zeros(0, np.int64) for i in range(n - 1)]
+    rows.append(np.sort(rng.choice(n - 1, size=wide, replace=False)))
+    indptr = np.concatenate([[0], np.cumsum([len(r) + 1 for r in rows])])
+    indices = np.concatenate([np.append(r, i) for i, r in enumerate(rows)])
+    data = rng.uniform(-1, 1, indices.size) / 8
+    data[indptr[1:] - 1] = 2.0 + rng.random(n)
+    return CSRMatrix.from_numpy(indptr, indices, data, (n, n))
+
+
+def _level_layout(name):
+    """lung2 (scale 0.05) coarsened, forward (chains of K = 2) or transpose
+    (wide plain steps, chains of K up to 106: warp chains), and a factor
+    with a row of 1,500 entries, coarsened."""
+    L = _arrow() if name == "arrow" else lung2_like(scale=0.05, seed=0)
+    if name == "lung2T":
+        s = build_schedule(L.transpose(), build_reverse_level_sets(L), upper=True)
+    else:
+        s = build_schedule(L, build_level_sets(L))
+    return make_packed_solver(coarsen_schedule(s), device="cpu")[3]
+
+
+@pytest.mark.parametrize("m", [1, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["lung2", "lung2T", "arrow"])
+def test_level_chain_and_wide_kernels_match_plain(card, name, dtype, m):
+    """Every launch variant (a thread or a warp per row, one launch per
+    segment or one block per chain) against the plain walk, one launch per
+    segment."""
+    lay = _level_layout(name)
+    table = level_table(lay, card)
+    kinds = table.kinds()
+    assert kinds["chain"] + kinds["chain_warp"] > 0
+    if name != "lung2":
+        assert kinds["segment_warp"] + kinds["chain_warp"] > 0
+        assert int(table.host[:, 1].max()) > (1000 if name == "arrow" else WIDE_K)
+    cols = torch.from_numpy(lay.cols_flat).to(card)
+    vf = torch.from_numpy(lay.vals_flat).to(card, dtype)
+    df = torch.from_numpy(lay.diag_flat).to(card, dtype)
+    g = torch.Generator().manual_seed(m)
+    shape = (-(-lay.n_pad // 128) * 128,) + (() if m == 1 else (m,))
+    x0 = torch.randn(shape, generator=g, dtype=dtype).to(card)
+    bhat = torch.randn(shape, generator=g, dtype=dtype).to(card)
+    key = "sptrsv_level" if m == 1 else "sptrsv_level_batched"
+    before, kinds0 = level_cuda.launches[key], dict(level_cuda.launch_kinds)
+    xk, xr = x0.clone(), x0.clone()
+    level_cuda.level_walk(xk, bhat, cols, vf, df, table)
+    level_walk_ref(xr, bhat, cols.long(), vf, df, table)
+    torch.cuda.synchronize()
+    assert level_cuda.launches[key] - before == table.num_segments
+    assert {k: level_cuda.launch_kinds[k] - kinds0[k] for k in kinds} == kinds
+    assert torch.isfinite(xk).all()
+    assert _rel(xk, xr) <= KERNEL_TOL[dtype]
+
+
+@pytest.mark.parametrize("kw", [dict(strategy="pallas_level"),
+                                dict(strategy="pallas_level", coarsen=True)],
+                         ids=["level", "level+coarsen"])
+def test_level_solver_launches_one_kernel_per_segment(card, kw):
+    L = lung2_like(scale=0.05, seed=0)
+    b = torch.from_numpy(np.random.default_rng(8).standard_normal((L.n, 32))).to(card)
+    for s, ref in zip(SpTRSV.build_pair(L, device=card, **kw),
+                      SpTRSV.build_pair(L, device=card, strategy="levelset")):
+        for rhs in (b[:, 0].contiguous(), b):
+            level_cuda.reset_launches()
+            x = s.solve(rhs)
+            torch.cuda.synchronize()
+            key = "sptrsv_level" if rhs.dim() == 1 else "sptrsv_level_batched"
+            assert level_cuda.launches[key] == s.stats()["segments"]
+            assert _rel(x, ref.solve(rhs)) <= 1e-12
 
 
 @pytest.mark.parametrize("m", [1, 32])
@@ -183,6 +260,32 @@ def test_blocked_solver_on_card_matches_dense(card):
                                        rtol=1e-12, atol=1e-12)
 
 
+@pytest.mark.parametrize("m", [1, 32])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_blocked_wide_band_matches_scipy(card, dtype, m):
+    """A band whose panels (K = 300) do not fit a stage in f64: one walk
+    launch per solve, panels read from device memory, against scipy's f64
+    triangular solve (1e-12 f64, 1e-4 f32)."""
+    import scipy.sparse as sp
+    from scipy.sparse.linalg import spsolve_triangular
+
+    L = banded_lower(8192, bandwidth=300, fill=1.0, seed=0)
+    A = sp.csr_matrix((L.data, L.indices, L.indptr), shape=L.shape)
+    b = np.random.default_rng(9).standard_normal((L.n, m)).astype(dtype)
+    rhs = torch.from_numpy(b[:, 0].copy() if m == 1 else b).to(card)
+    for s in SpTRSV.build_pair(L.astype(dtype), device=card, strategy="blocked"):
+        trsm_cuda.reset_launches()
+        x = s.solve(rhs)
+        torch.cuda.synchronize()
+        key = "trsm_block_walk" if m == 1 else "trsm_block_walk_batched"
+        assert trsm_cuda.launches == {**{k: 0 for k in trsm_cuda.launches}, key: 1}
+        want = spsolve_triangular(A.T.tocsr() if s.transpose else A,
+                                  b.astype(np.float64), lower=not s.transpose)
+        got = x.double().cpu().numpy().reshape(want.shape)
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        assert err <= (1e-12 if dtype == np.float64 else 1e-4), err
+
+
 def test_blocked_solver_launches_the_walk_once(card):
     """One walk launch per blocked solve, and no SpMV or per-segment apply."""
     L = banded_lower(2000, bandwidth=24, fill=1.0, seed=1)
@@ -200,7 +303,7 @@ def test_blocked_solver_launches_the_walk_once(card):
 
 # the walk's layouts: a dense band (B = 1, T = 64: one block per column
 # group), a band whose panels (K = 120) leave room for one f64 stage only,
-# lung2 (B > 1, T = 1: the cooperative grid, forward K <= 4 and the
+# a band whose f64 panels (K = 300) are read from device memory, lung2 (B > 1, T = 1: the cooperative grid, forward K <= 4 and the
 # transpose's wide panels), and mixed T (1 to 9, up to 298 blocks of T > 1)
 # with pad lanes
 def _walk_matrix(name):
@@ -208,6 +311,8 @@ def _walk_matrix(name):
         return banded_lower(6400, bandwidth=24, fill=1.0, seed=2), False, None
     if name == "wide":
         return banded_lower(1500, bandwidth=120, fill=1.0, seed=1), False, None
+    if name == "wide300":
+        return banded_lower(2000, bandwidth=300, fill=1.0, seed=1), False, None
     if name.startswith("lung2"):
         return lung2_like(scale=0.05, seed=0), name.endswith("T"), None
     return (random_lower(4000, seed=5), False,
@@ -227,7 +332,8 @@ def _walk_case(name, dev, dtype):
 
 @pytest.mark.parametrize("m", [1, 7, 32, 33])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("name", ["band", "wide", "lung2", "lung2T", "mixed"])
+@pytest.mark.parametrize("name", ["band", "wide", "wide300", "lung2", "lung2T",
+                                  "mixed"])
 def test_walk_kernel_matches_plain(card, name, dtype, m):
     lay, table, cols, vals, dinv = _walk_case(name, card, dtype)
     g = torch.Generator().manual_seed(m)
@@ -235,10 +341,12 @@ def test_walk_kernel_matches_plain(card, name, dtype, m):
                        dtype=dtype).to(card)
     key = "trsm_block_walk" if m == 1 else "trsm_block_walk_batched"
     cfg = trsm_cuda.walk_config(table, m, dtype)
-    if name in ("band", "wide"):    # B = 1: a block per column group, no barrier
+    if name.startswith(("band", "wide")):   # B = 1: a block per column group
         assert not cfg["cooperative"] and cfg["grid"] == cfg["groups"]
     if name == "wide" and dtype == torch.float64:
         assert cfg["stages"] == 1
+    # f64 panels of K = 300 stay in device memory; every other one is staged
+    assert (cfg["global_panels"] > 0) == (name == "wide300" and dtype == torch.float64)
     if name.startswith("lung2") and m > 1:      # B > 32 blocks of T = 1
         assert cfg["cooperative"] and cfg["barriers"] > 0
     for _ in range(2):      # the second launch reuses the barrier's scratch

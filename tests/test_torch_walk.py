@@ -5,6 +5,9 @@ on the same layout and values, before and after a value re-pack; the walk's
 segment table; and the SpMV's plain version against the JAX SpMV kernel (TPU
 lowering under ``interpret``) on a rewritten E, NaN rows for a non-finite
 ``v[0]`` included, with the row-length checks the kernel relies on."""
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -244,3 +247,99 @@ def test_spmv_row_lengths_of_rewritten_e():
                                res.E.to_dense() @ b, rtol=1e-12, atol=1e-12)
     cols = device_cols(t_codegen.build_ell(res.E).cols, res.E.n, torch.device("cpu"))
     assert cols.dtype == torch.int64
+
+
+# A twin of the walk's shared-memory sizing (plan() in trsm_block.cu), held
+# against the source: its constants are read from it, and its formulas must
+# stand there as written here.
+_WALK_CU = (Path(__file__).resolve().parents[1]
+            / "src/repro_torch/kernels/csrc/trsm_block.cu").read_text()
+_WALK_FORMULAS = (
+    "return (T * sz) % 16 == 0 ? T + 16 / sz : T | 1;",
+    "return T * (dinv_ld(static_cast<int>(T), sz) * sz + K * (4 + sz) + 4 + mc * sz);",
+    "return 3 * K * (4 + sz) + 96;",
+    "*ks = *per + *fixed <= pcap ? K : 0;",
+    "*per -= T * K * (4 + sz);",
+    "*fixed = stage_fixed(0, sz);",
+    "const long long rhs = rup((nt > Tmax * mc ? nt : Tmax * mc) * sz, 16);",
+    "const long long avail = kMaxSmem - rhs;",
+    "const long long pcap = avail;",
+    "stage_size(T_, K, mc, sz, pcap, &per, &fixed, &Ks);",
+    "if (per + fixed > need1) need1 = per + fixed;",
+)
+
+
+def _walk_const(name):
+    return int(re.search(rf"constexpr (?:int|long long) {name} = (-?\d+);",
+                         _WALK_CU).group(1))
+
+
+def _stage_per(T, K, mc, sz):
+    ld = T + 16 // sz if (T * sz) % 16 == 0 else T | 1
+    return T * (ld * sz + K * (4 + sz) + 4 + mc * sz)
+
+
+def _stage_fixed(K, sz):
+    return 3 * K * (4 + sz) + 96
+
+
+def _walk_sizing(geo, m, sz, *, stage_panels=None):
+    """``(need1, avail, global_panels)`` of plan(): the bytes of the largest
+    one-block stage, the shared memory beside the rhs buffer, and the
+    segments whose panel stays in device memory.  ``stage_panels=True``
+    sizes every panel staged, as the walk did before wide panels."""
+    cols, threads = _walk_const("kCols"), _walk_const("kMaxThreads")
+    mc = min(m, cols)
+    nt = threads if mc >= 4 else threads // 2
+    rhs = -(-max(nt, int(geo[:, 3].max()) * mc) * sz // 16) * 16
+    avail = _walk_const("kMaxSmem") - rhs
+    need1, glob = 16, 0
+    for T, K in geo[:, 3:5].tolist():
+        staged = stage_panels or (_stage_per(T, K, mc, sz)
+                                  + _stage_fixed(K, sz) <= avail)
+        Ks = K if staged else 0
+        glob += Ks < K
+        need1 = max(need1, _stage_per(T, Ks, mc, sz) + _stage_fixed(Ks, sz))
+    return -(-need1 // 16) * 16, avail, glob
+
+
+def test_walk_sizing_twin_matches_the_source():
+    for line in _WALK_FORMULAS:
+        assert line in _WALK_CU, line
+    assert _walk_const("kMaxSmem") == trsm_cuda.MAX_SMEM_BYTES
+    assert (_walk_const("kCols"), _walk_const("kMaxThreads"),
+            _walk_const("kTooBig")) == (8, 512, -2)
+
+
+@pytest.mark.parametrize("m", [1, 32])
+@pytest.mark.parametrize("sz", [4, 8])
+def test_walk_stage_does_not_grow_with_k(sz, m):
+    """A 64-row block's largest stage stops growing once its panel is too
+    wide to stage: any K fits, where staging every panel would not."""
+    need = {}
+    for K in (24, 120, 250, 300, 400, 2_000, 100_000):
+        geo = np.array([[0, 64, 1, 64, K, 0, 0, 0]], dtype=np.int64)
+        need[K], avail, glob = _walk_sizing(geo, m, sz)
+        assert need[K] <= avail
+        assert glob == (need[K] < _stage_per(64, K, min(m, 8), sz))
+    assert need[24] < need[120] and need[400] == need[2_000] == need[100_000]
+    geo = np.array([[0, 64, 1, 64, 400, 0, 0, 0]], dtype=np.int64)
+    assert _walk_sizing(geo, m, sz, stage_panels=True)[0] > avail
+
+
+@pytest.mark.parametrize("bandwidth,sizes", [(24, ()), (250, (8,)), (300, (8,)),
+                                             (400, (4, 8))])
+def test_wide_band_layouts_fit_the_walk(bandwidth, sizes):
+    """The bands of ROADMAP C1: a band whose full panel stage the walk
+    refused (``sizes``: f32 4, f64 8) reads those panels from device memory
+    and fits; a narrow band stages every panel, as before."""
+    L = to_port(jsparse.banded_lower(2048, bandwidth=bandwidth, fill=1.0))
+    sn = t_levels.detect_supernodes(L)
+    lay = t_packed.build_packed_blocked_layout(t_coarsen.build_block_schedule(L, sn))
+    geo = t_packed.walk_geometry(lay)
+    for sz in (4, 8):
+        for m in (1, 32):
+            need1, avail, glob = _walk_sizing(geo, m, sz)
+            assert need1 <= avail
+            refused = _walk_sizing(geo, m, sz, stage_panels=True)[0] > avail
+            assert refused == (sz in sizes) == (glob > 0), (sz, m)
