@@ -22,8 +22,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    {1, 32}; the level walk over lung2's whole coarsened table in both
    directions, one launch per segment: chains on one block or cluster,
    the transpose's wide rows on up to 32 warps each, and a small lung2 transpose
-   whose chains are wide; the batched fused solve also on a 1,000-row
-   chain, one span per row; the blocked walk on the band's layout, the
+   whose chains are wide; the single-RHS fused walk on lung2's whole
+   forward and transpose fused layouts, the batched fused solve on the
+   forward one, and both on a 1,000-row chain, one span per row (the
+   walk's time per dependent hop); the blocked walk on the band's layout, the
    wide band's (panels read from device memory), lung2's blocked layout
    (the cooperative grid) and a random layout of mixed block sizes; the
    SpMV on E with and without row lengths, and with v[0] = inf; flash
@@ -61,8 +63,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    launches of each kernel in one forward f64 solve; level launches per
    ``pallas_level`` solve (with and without coarsening and rewriting,
    both directions, m in {1, 32}: one per segment) and the level walk's
-   time on each lung2 table; the device's busy share of a blocked solve
-   and of the coarsened ``pallas_level`` solve; for the LM, prefill ms per request, decode ms
+   time on each lung2 table; the single-RHS fused walk on the transpose
+   layout beside its bound, its plain version and
+   ``torch.triangular_solve`` on the transpose, and what its wrapper adds
+   around each launch (x̂'s fill; the error word's read, which phases 2
+   and 3 make after every walk and phase 4 only where it says so, as the
+   solver runs by default); the device's busy
+   share of a blocked solve, of the coarsened ``pallas_level`` solve and of
+   a ``pallas_fused`` solve each way; for the LM, prefill ms per request, decode ms
    per step beside its weight-read bound, and the device's busy share of a
    decode step.  The per-segment block apply is off the paths since the
    walk took its place; it is checked and timed as before.
@@ -138,8 +146,8 @@ FLASH_CASES = {"granite prefill": (1, 2048, 32, 8, 128, 0),
                "hd=64 GQA 8:1": (2, 1000, 8, 1, 64, 0),
                "hd=128 ragged": (2, 65, 4, 4, 128, 0),
                "hd=256 long": (1, 2048, 8, 2, 256, 0)}
-# the batched fused solve on a chain (one row per span, so one grid
-# barrier per row) in phase 2
+# both fused solves on a chain in phase 2: one row per span, so one
+# dependent hop of the walk and one grid barrier of the batched grid per row
 CHAIN_N = 1000
 # a transpose pallas_fused batch whose first solve takes longer stays out
 # of the paths and the timings
@@ -562,6 +570,7 @@ def main() -> int:
     from repro_torch.kernels.sptrsv_fused import cuda as fused_cuda
     from repro_torch.kernels.sptrsv_fused.ops import build_layout
     from repro_torch.kernels.sptrsv_fused.ref import fused_solve_ref
+    from repro_torch.kernels.sptrsv_fused.table import fused_table
     from repro_torch.kernels.sptrsv_level import cuda as level_cuda
     from repro_torch.kernels.sptrsv_level.ops import make_packed_solver
     from repro_torch.kernels.sptrsv_level.ref import level_walk_ref
@@ -695,6 +704,10 @@ def main() -> int:
     print(f"built the walk layouts in {time.perf_counter() - t0:.1f} s")
 
     # -- phase 2: each kernel against its plain version -------------------
+    # phases 2 and 3 read the fused walk's error word after every launch,
+    # so a wait that runs out raises; phase 4 times the solver as it runs
+    # by default, without the read
+    fused_cuda.check_waits = True
     rng = np.random.default_rng(0)
     kernel_err = {}
 
@@ -749,36 +762,53 @@ def main() -> int:
                        f"launches for {len(table.steps)} wavefronts {json.dumps(kinds)}, "
                        f"K max {int(table.host[:, 1].max())}")
 
-        flay = build_layout(sched)
-        fcols = torch.from_numpy(flay.cols).to(dev)
-        fvals = torch.from_numpy(flay.vals).to(dev)
-        fdiag = torch.from_numpy(flay.diag).to(dev)
-        spans = torch.tensor(flay.spans, dtype=torch.int32, device=dev)
-        for m in WIDTHS:
-            bl = randn((flay.n_pad,) if m == 1 else (flay.n_pad, m), tdt)
-            xk = fused_cuda.fused_solve(bl, fcols, fvals, fdiag, spans)
-            xr = fused_solve_ref(bl, fcols, fvals, fdiag, chunk=flay.chunk)
-            record("sptrsv_fused" if m == 1 else "sptrsv_fused_batched", dt,
-                   xk, xr, f"m={m:2d} whole layout n_pad={flay.n_pad} "
-                   f"spans={len(flay.spans)}"
-                   + ("" if m == 1 else f", grid {fused_cuda.batched_grid(tdt)} blocks"))
-        # the batched fused solve on a chain: one span, so one grid barrier,
-        # per row
+        # the fused solves on lung2's whole layouts: the single-RHS walk in
+        # both directions, the batched grid forward
+        for d, fsched in (("forward", sched),
+                          ("transpose", solvers["pallas_level", dt][1].schedule)):
+            flay = build_layout(fsched)
+            ftable = fused_table(flay, dev)
+            fcols = torch.from_numpy(flay.cols).to(dev)
+            fvals = torch.from_numpy(flay.vals).to(dev)
+            fdiag = torch.from_numpy(flay.diag).to(dev)
+            spans = torch.tensor(flay.spans, dtype=torch.int32, device=dev)
+            for m in (WIDTHS if d == "forward" else (1,)):
+                bl = randn((flay.n_pad,) if m == 1 else (flay.n_pad, m), tdt)
+                xk = fused_cuda.fused_solve(bl, fcols, fvals, fdiag, spans, ftable)
+                xr = fused_solve_ref(bl, fcols, fvals, fdiag, chunk=flay.chunk)
+                record("sptrsv_fused" if m == 1 else "sptrsv_fused_batched", dt,
+                       xk, xr, f"m={m:2d} {d} whole layout n_pad={flay.n_pad} "
+                       f"K={flay.K} spans={len(flay.spans)}"
+                       + (f", {ftable.num_groups} groups ({ftable.num_real} of "
+                          f"real rows), grid {fused_cuda.walk_grid(tdt)} blocks"
+                          if m == 1 else
+                          f", grid {fused_cuda.batched_grid(tdt)} blocks"))
+            del flay, ftable, fcols, fvals, fdiag, spans, bl, xk, xr
+        # both fused solves on a chain (one row per span): the walk's 999
+        # dependent hops, the batched grid's barrier per span
         chain = chain_matrix(CHAIN_N, dtype=np.dtype(dt))
         clay = build_layout(build_schedule(chain, build_level_sets(chain)))
+        ctable = fused_table(clay, dev)
         ccols, cvals, cdiag = (torch.from_numpy(a).to(dev)
                                for a in (clay.cols, clay.vals, clay.diag))
         cspans = torch.tensor(clay.spans, dtype=torch.int32, device=dev)
-        bl = randn((clay.n_pad, WIDTHS[-1]), tdt)
-        record("sptrsv_fused_batched", dt,
-               fused_cuda.fused_solve(bl, ccols, cvals, cdiag, cspans),
-               fused_solve_ref(bl, ccols, cvals, cdiag, chunk=clay.chunk),
-               f"m={WIDTHS[-1]} chain n={chain.n} n_pad={clay.n_pad} "
-               f"spans={len(clay.spans)}")
-        t = time_ms(torch, lambda: fused_cuda.fused_solve(bl, ccols, cvals, cdiag, cspans))
-        print(f"phase 2: sptrsv_fused_batched {dt} chain: {fmt_ms(t)} per solve, "
-              f"{t[0] / len(clay.spans) * 1e3:.3f} us per span (a grid barrier "
-              "and one dependent row)")
+        for m in WIDTHS:
+            bl = randn((clay.n_pad,) if m == 1 else (clay.n_pad, m), tdt)
+            name = "sptrsv_fused" if m == 1 else "sptrsv_fused_batched"
+            record(name, dt,
+                   fused_cuda.fused_solve(bl, ccols, cvals, cdiag, cspans, ctable),
+                   fused_solve_ref(bl, ccols, cvals, cdiag, chunk=clay.chunk),
+                   f"m={m:2d} chain n={chain.n} n_pad={clay.n_pad} "
+                   f"spans={len(clay.spans)}")
+            fused_cuda.check_waits = False
+            t = time_ms(torch, lambda: fused_cuda.fused_solve(
+                bl, ccols, cvals, cdiag, cspans, ctable))
+            fused_cuda.check_waits = True
+            print(f"phase 2: {name} {dt} chain: {fmt_ms(t)} per solve, " + (
+                f"{t[0] / (chain.n - 1) * 1e3:.3f} us per dependent hop (a poll "
+                "of x from L2, the row, its store)" if m == 1 else
+                f"{t[0] / len(clay.spans) * 1e3:.3f} us per span (a grid "
+                "barrier and one dependent row)"))
 
         # the SpMV on the forward rewrite's E and on one panel of the band
         E = rw_solvers["levelset", dt][0].rewrite_result.E
@@ -1149,6 +1179,7 @@ def main() -> int:
           f"(L' segments: {rw_solvers['pallas_level', 'float64'][0].stats()['segments']})")
 
     # -- phase 4: times -----------------------------------------------------
+    fused_cuda.check_waits = False
     for dt in mats:
         for m in WIDTHS:
             b = torch.from_numpy(rng.standard_normal(
@@ -1183,6 +1214,7 @@ def main() -> int:
                    ("pallas_level+coarsen", solvers["pallas_level+coarsen", "float64"][0]),
                    ("pallas_level+coarsen", solvers["pallas_level+coarsen", "float64"][1]),
                    ("pallas_fused", solvers["pallas_fused", "float64"][0]),
+                   ("pallas_fused", solvers["pallas_fused", "float64"][1]),
                    ("levelset", solvers["levelset", "float64"][0]),
                    ("rewrite:pallas_level", rw_solvers["pallas_level", "float64"][0]),
                    ("rewrite:pallas_fused", rw_solvers["pallas_fused", "float64"][0])):
@@ -1205,6 +1237,7 @@ def main() -> int:
     fvals = torch.from_numpy(flay.vals).to(dev)
     fdiag = torch.from_numpy(flay.diag).to(dev)
     spans = torch.tensor(flay.spans, dtype=torch.int32, device=dev)
+    ftable = fused_table(flay, dev)
     perm_rows = torch.from_numpy(flay.perm_rows.astype(np.int64)).to(dev)
     A_csr = torch.sparse_csr_tensor(
         torch.from_numpy(L.indptr), torch.from_numpy(L.indices),
@@ -1240,7 +1273,39 @@ def main() -> int:
         torch.from_numpy(band64.data), size=band64.shape, device=dev)
     report = []
 
-    def row(name, ms, plain_ms, bound, lib_ms):
+    # the single-RHS walk on the transpose layout (ELL width 1,975), and
+    # what its wrapper adds around each launch: x̂'s fill and the scratch's
+    # zeroing before, the error word's read after
+    tlay = build_layout(solvers["pallas_level", dt][1].schedule)
+    ttable = fused_table(tlay, dev)
+    tcols, tvals, tdiag = (torch.from_numpy(a).to(dev)
+                           for a in (tlay.cols, tlay.vals, tlay.diag))
+    bT = torch.from_numpy(rng.standard_normal((L.n, 1))).to(dev)
+    tbl = torch.cat([bT[:, 0], bT.new_zeros(1)]).index_select(
+        0, torch.from_numpy(tlay.perm_rows.astype(np.int64)).to(dev))
+    LT = L.transpose()
+    LT_csr = torch.sparse_csr_tensor(
+        torch.from_numpy(LT.indptr), torch.from_numpy(LT.indices),
+        torch.from_numpy(LT.data), size=LT.shape, device=dev)
+    t_ms = time_ms(torch, lambda: fused_cuda.fused_solve(tbl, tcols, tvals, tdiag,
+                                                         table=ttable))
+    t_plain = time_ms(torch, lambda: fused_solve_ref(tbl, tcols, tvals, tdiag,
+                                                     chunk=tlay.chunk))
+    t_bound = solve_bound_ms(L, 1, dt)
+    bits, pending = fused_cuda.PENDING[tdt]
+    fill_ms = time_ms(torch, lambda: (
+        torch.full((flay.n_pad,), pending, dtype=bits, device=dev),
+        torch.zeros(2, dtype=torch.int32, device=dev)))
+    word = torch.zeros(2, dtype=torch.int32, device=dev)
+    read_ms = time_ms(torch, lambda: int(word[1]))
+    print(f"phase 4: sptrsv_fused walk f64 m=1: grid {fused_cuda.walk_grid(tdt)} "
+          f"blocks x 256 threads; forward {ftable.num_groups} groups "
+          f"({ftable.num_real} of real rows), transpose {ttable.num_groups} "
+          f"({ttable.num_real}); around each launch: x̂ fill and scratch "
+          f"zeroing {fmt_ms(fill_ms)}, the error word's read {fmt_ms(read_ms)}")
+    del tlay, ttable
+
+    def row(name, ms, plain_ms, bound, lib_ms, extra=None):
         print(f"phase 4: kernel {name:24s} f64: {fmt_ms(ms)} per solve "
               f"({json.dumps(per_solve[name])} launches), plain "
               f"{fmt_ms(plain_ms)}, bound {bound[0]:.6f} ms ({bound[1]}), "
@@ -1252,7 +1317,8 @@ def main() -> int:
             "launches_per_solve": per_solve[name],
             "max_abs_err": kernel_err[name, dt], "ms": ms[0],
             "ms_min_max": [ms[1], ms[2]], "plain_ms": plain_ms[0],
-            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib_ms})
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib_ms,
+            **(extra or {})})
 
     def library(what, fn):
         try:
@@ -1281,10 +1347,32 @@ def main() -> int:
                   f"{fused_cuda.batched_grid(tdt)} blocks x 1024 threads on "
                   f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs, "
                   f"{len(flay.spans) - 1} grid barriers per solve")
+        extra = None
+        if m == 1:
+            t_lib = library("torch.triangular_solve on the transpose's CSR",
+                            lambda: torch.triangular_solve(bT, LT_csr, upper=True))
+            print(f"phase 4: kernel sptrsv_fused transpose f64: {fmt_ms(t_ms)} per "
+                  f"solve, plain {fmt_ms(t_plain)}, bound {t_bound[0]:.6f} ms "
+                  f"({t_bound[1]}), library "
+                  f"{'n/a' if t_lib is None else f'{t_lib:.4f} ms'}")
+            fused_cuda.check_waits = True
+            checked = time_ms(torch, lambda: fused_cuda.fused_solve(
+                bl, fcols, fvals, fdiag, spans, ftable))
+            fused_cuda.check_waits = False
+            print(f"phase 4: sptrsv_fused f64 with the error word read after "
+                  f"each launch: {fmt_ms(checked)} per solve")
+            extra = {"transpose": {
+                "ms": t_ms[0], "ms_min_max": [t_ms[1], t_ms[2]],
+                "plain_ms": t_plain[0], "bound_ms": t_bound[0],
+                "bound_by": t_bound[1], "library_ms": t_lib},
+                "fill_ms": fill_ms[0], "error_read_ms": read_ms[0],
+                "checked_ms": checked[0]}
         row("sptrsv_fused" if m == 1 else "sptrsv_fused_batched",
-            time_ms(torch, lambda: fused_cuda.fused_solve(bl, fcols, fvals, fdiag, spans)),
+            time_ms(torch, lambda: fused_cuda.fused_solve(bl, fcols, fvals, fdiag,
+                                                          spans, ftable)),
             time_ms(torch, lambda: fused_solve_ref(bl, fcols, fvals, fdiag,
-                                                   chunk=flay.chunk)), bound, lib_ms)
+                                                   chunk=flay.chunk)), bound, lib_ms,
+            extra)
         print(f"phase 4: spmv over all K slots (no row lengths) m={m:2d}: "
               f"{fmt_ms(time_ms(torch, lambda: spmv_cuda.spmv(bv, ecols, evals)))}")
         row("spmv_ell" if m == 1 else "spmv_ell_batched",

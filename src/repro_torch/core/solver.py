@@ -16,7 +16,10 @@ Strategies ported so far (all in ``layout="permuted"``):
                    (:mod:`repro_torch.kernels.sptrsv_level`): a wavefront,
                    or a coarsened chain walked by one thread block
 ``pallas_fused``   the whole solve as one CUDA launch
-                   (:mod:`repro_torch.kernels.sptrsv_fused`)
+                   (:mod:`repro_torch.kernels.sptrsv_fused`): for one RHS
+                   a synchronisation-free walk in which each row waits
+                   only for the rows it reads, for a batch a cooperative
+                   grid with a barrier per wavefront span
 ``blocked``        supernodal: the whole solve as one CUDA launch that
                    walks every super-level's panel update and batched
                    dense diagonal-block apply in order

@@ -4,9 +4,10 @@
 :func:`build_layout` packs a :class:`Schedule` into the level-order permuted
 ELL layout with chunk-aligned wavefront ``spans`` (array for array the JAX
 package's fused layout).  :func:`fused_solve` runs the whole solve: the
-CUDA kernel for tensors on the card (one block for a single RHS, a
-cooperative grid over every SM for a batch), the plain chunk walk for
-tensors on the CPU.
+CUDA kernel for tensors on the card (for a single RHS a walk of the
+layout's :class:`~.table.FusedTable`, each row waiting only for the rows
+it reads; for a batch a cooperative grid over every SM with a barrier per
+span), the plain chunk walk for tensors on the CPU.
 
 Direction-agnostic: backward (transpose) schedules permute rows by reverse
 level order, so every dependency position still precedes its consumer.
@@ -24,6 +25,7 @@ from ...core.packed import gather_src
 from ..backend import resolve_device
 from . import cuda
 from .ref import fused_solve_ref
+from .table import FusedTable, fused_table
 
 __all__ = ["FusedLayout", "build_layout", "fused_solve", "make_packed_solver"]
 
@@ -38,7 +40,8 @@ class FusedLayout:
     ``val_src``/``diag_src`` map packed values back to the source matrix's
     ``data`` indices (-1 padding) — the value-only refresh maps.
     ``spans``        chunk-aligned ``(offset, padded_rows)`` of each
-                     wavefront — the barrier boundaries of the kernel's walk.
+                     wavefront — the barrier boundaries of the batched
+                     kernel's walk.
     """
 
     n: int
@@ -102,12 +105,13 @@ def build_layout(schedule: Schedule, chunk: int = 512) -> FusedLayout:
     )
 
 
-def fused_solve(bl_perm, cols, vals, diag, *, chunk: int, spans):
+def fused_solve(bl_perm, cols, vals, diag, *, chunk: int, spans,
+                table: Optional[FusedTable] = None):
     """The whole permuted solve ``x̂``: the CUDA kernel for tensors on the
-    card (walking ``spans``, an int32 ``(S, 2)`` tensor), the plain chunk
-    walk for tensors on the CPU."""
+    card (a single RHS walks ``table``, a batch ``spans``, an int32
+    ``(S, 2)`` tensor), the plain chunk walk for tensors on the CPU."""
     if bl_perm.is_cuda:
-        return cuda.fused_solve(bl_perm, cols, vals, diag, spans)
+        return cuda.fused_solve(bl_perm, cols, vals, diag, spans, table)
     if bl_perm.device.type == "cpu":
         return fused_solve_ref(bl_perm, cols, vals, diag, chunk=chunk)
     raise ValueError(f"no fused kernel for device {bl_perm.device}")
@@ -118,13 +122,15 @@ def make_packed_solver(schedule: Schedule, *, device="cuda", chunk: int = 512):
 
     ``values0`` are the packed ``(vals (K, n_pad), diag (n_pad,))`` tensors
     on ``device``; ``repack(data)`` re-packs new matrix data of the same
-    pattern as numpy arrays of the same shapes."""
+    pattern as numpy arrays of the same shapes.  The single-RHS walk's
+    table, built once here, is ``solve.table``."""
     dev = resolve_device(device)
     lay = build_layout(schedule, chunk)
     n = lay.n
     # A CUDA gather does not clip: every column position must lie in x̂.
     if int(lay.cols.max()) >= lay.n_pad:
         raise RuntimeError("fused column position outside x̂")
+    table = fused_table(lay, dev)
     cols_np = lay.cols if dev.type == "cuda" else lay.cols.astype(np.int64)
     cols = torch.from_numpy(cols_np).to(dev)
     perm_rows = torch.from_numpy(lay.perm_rows.astype(np.int64)).to(dev)
@@ -143,7 +149,8 @@ def make_packed_solver(schedule: Schedule, *, device="cuda", chunk: int = 512):
         b_ext = torch.cat([b, b.new_zeros((1,) + tuple(b.shape[1:]))])
         bl_perm = b_ext.index_select(0, perm_rows)  # pad rows -> b_ext[n] = 0
         xp = fused_solve(bl_perm, cols, vals.to(dt), diag.to(dt),
-                         chunk=lay.chunk, spans=spans)
+                         chunk=lay.chunk, spans=spans, table=table)
         return xp.index_select(0, pos)
 
+    solve.table = table
     return solve, values0, repack, lay

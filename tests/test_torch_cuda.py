@@ -9,6 +9,8 @@ visible, and run on a machine with one via
 
 This file imports only the port, and ``--noconftest`` skips the suite's
 JAX set-up: the GPU machine has no JAX."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -30,6 +32,7 @@ from repro_torch.kernels.spmv_ell.ref import spmv_ref
 from repro_torch.kernels.sptrsv_fused import cuda as fused_cuda
 from repro_torch.kernels.sptrsv_fused.ops import build_layout
 from repro_torch.kernels.sptrsv_fused.ref import fused_solve_ref
+from repro_torch.kernels.sptrsv_fused.table import fused_table
 from repro_torch.kernels.sptrsv_level import cuda as level_cuda
 from repro_torch.kernels.sptrsv_level.ops import make_packed_solver
 from repro_torch.kernels.sptrsv_level.ref import level_walk_ref
@@ -50,6 +53,13 @@ KERNEL_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True)
+def check_waits(monkeypatch):
+    """The fused walk reads its error word back after every launch here: a
+    wait that runs out raises."""
+    monkeypatch.setattr(fused_cuda, "check_waits", True)
 
 
 @pytest.fixture
@@ -166,24 +176,140 @@ def test_level_solver_launches_one_kernel_per_segment(card, kw):
             assert _rel(x, ref.solve(rhs)) <= 1e-12
 
 
+def _fused_layout(name):
+    """lung2 forward (scale 0.02), a lung2 transpose whose rows reach 106
+    slots (56 rows wider than 32), and a 1,000-row chain (one row per
+    span: 999 dependent hops)."""
+    if name == "lung2":
+        return build_layout(_schedule(False))
+    if name == "lung2T":
+        L = lung2_like(scale=0.05, seed=0)
+        return build_layout(build_schedule(L.transpose(), build_reverse_level_sets(L),
+                                           upper=True))
+    L = chain_matrix(1000)
+    return build_layout(build_schedule(L, build_level_sets(L)))
+
+
+def _fused_args(lay, card, dtype):
+    return (torch.from_numpy(lay.cols).to(card),
+            torch.from_numpy(lay.vals).to(card, dtype),
+            torch.from_numpy(lay.diag).to(card, dtype))
+
+
 @pytest.mark.parametrize("m", [1, 32])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_fused_kernel_matches_plain(card, dtype, m):
-    lay = build_layout(_schedule(False))
-    cols = torch.from_numpy(lay.cols).to(card)
-    vals = torch.from_numpy(lay.vals).to(card, dtype)
-    diag = torch.from_numpy(lay.diag).to(card, dtype)
+@pytest.mark.parametrize("name", ["lung2", "lung2T", "chain"])
+def test_fused_kernel_matches_plain(card, name, dtype, m):
+    """One launch per call: the single-RHS walk (m = 1) or the batched
+    grid (m = 32) against the plain chunk walk."""
+    lay = _fused_layout(name)
+    cols, vals, diag = _fused_args(lay, card, dtype)
     spans = torch.tensor(lay.spans, dtype=torch.int32, device=card)
+    table = fused_table(lay, card)
+    if name == "lung2T":
+        assert int(table.row_len.max()) > WIDE_K
     g = torch.Generator().manual_seed(1)
     bl = torch.randn((lay.n_pad,) + (() if m == 1 else (m,)), generator=g,
                      dtype=dtype).to(card)
     key = "sptrsv_fused" if m == 1 else "sptrsv_fused_batched"
     before = fused_cuda.launches[key]
-    xk = fused_cuda.fused_solve(bl, cols, vals, diag, spans)
+    xk = fused_cuda.fused_solve(bl, cols, vals, diag, spans, table)
     xr = fused_solve_ref(bl, cols, vals, diag, chunk=lay.chunk)
     torch.cuda.synchronize()
     assert fused_cuda.launches[key] == before + 1
+    assert torch.isfinite(xk).all()
     assert _rel(xk, xr) <= KERNEL_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["lung2", "lung2T"])
+def test_fused_walk_nonfinite_like_plain(card, name, dtype):
+    """inf and NaN at the positions the pad columns read: the walk's NaN
+    and inf where the plain chunk walk has them, the rest close."""
+    lay = _fused_layout(name)
+    cols, vals, diag = _fused_args(lay, card, dtype)
+    table = fused_table(lay, card)
+    pc = table.pad_cols[table.pad_cols >= 0].unique().long()
+    g = torch.Generator().manual_seed(2)
+    for bad in (float("inf"), float("nan")):
+        bl = torch.randn(lay.n_pad, generator=g, dtype=dtype).to(card)
+        bl[pc] = bad
+        xk = fused_cuda.fused_solve(bl, cols, vals, diag, table=table)
+        xr = fused_solve_ref(bl, cols, vals, diag, chunk=lay.chunk)
+        torch.cuda.synchronize()
+        assert torch.isnan(xr).any()
+        assert torch.equal(torch.isnan(xk), torch.isnan(xr))
+        assert torch.equal(torch.isinf(xk), torch.isinf(xr))
+        fin = torch.isfinite(xr)
+        assert _rel(xk[fin], xr[fin]) <= KERNEL_TOL[dtype]
+
+
+def test_fused_walk_twice_in_a_row(card):
+    """Two solves with different right-hand sides: nothing of the first
+    (x̂, ticket) leaks into the second."""
+    lay = _fused_layout("lung2T")
+    cols, vals, diag = _fused_args(lay, card, torch.float64)
+    table = fused_table(lay, card)
+    g = torch.Generator().manual_seed(3)
+    b1, b2 = (torch.randn(lay.n_pad, generator=g, dtype=torch.float64).to(card)
+              for _ in range(2))
+    x1 = fused_cuda.fused_solve(b1, cols, vals, diag, table=table)
+    x2 = fused_cuda.fused_solve(b2, cols, vals, diag, table=table)
+    torch.cuda.synchronize()
+    assert _rel(x1, fused_solve_ref(b1, cols, vals, diag, chunk=lay.chunk)) <= 1e-12
+    assert _rel(x2, fused_solve_ref(b2, cols, vals, diag, chunk=lay.chunk)) <= 1e-12
+
+
+def test_fused_walk_broken_table_raises(card, monkeypatch):
+    """A row that waits on its own position (which only it writes) gives up
+    after the spin limit: under ``check_waits`` RuntimeError and no launch
+    counted; without the check the launch returns, its row NaN and the
+    real rows before it right.  Then a solve on the sound table is right."""
+    lay = _fused_layout("lung2")
+    cols, vals, diag = _fused_args(lay, card, torch.float64)
+    table = fused_table(lay, card)
+    p = int(table.host_groups[table.num_real // 2, 0])
+    pc = table.pad_cols.clone()
+    pc[:, p] = torch.tensor([p, -1], dtype=torch.int32)
+    broken = dataclasses.replace(table, pad_cols=pc)
+    bl = torch.ones(lay.n_pad, dtype=torch.float64, device=card)
+    before = fused_cuda.launches["sptrsv_fused"]
+    with pytest.raises(RuntimeError, match="ran out"):
+        fused_cuda.fused_solve(bl, cols, vals, diag, table=broken)
+    assert fused_cuda.launches["sptrsv_fused"] == before
+    monkeypatch.setattr(fused_cuda, "check_waits", False)
+    x = fused_cuda.fused_solve(bl, cols, vals, diag, table=broken)
+    torch.cuda.synchronize()
+    real = torch.from_numpy(lay.perm_rows[:p] < lay.n).to(card)
+    assert torch.isnan(x[p]) and torch.isfinite(x[:p][real]).all()
+    x = fused_cuda.fused_solve(bl, cols, vals, diag, table=table)
+    assert _rel(x, fused_solve_ref(bl, cols, vals, diag, chunk=lay.chunk)) <= 1e-12
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_solver_pair_after_refresh(card, dtype):
+    """``build_pair(..., strategy="pallas_fused")`` at m = 1, forward and
+    transpose: one walk launch per solve, against ``levelset`` before and
+    after a refresh (the table stays, the values change)."""
+    L = lung2_like(scale=0.05, seed=0)
+    if dtype == torch.float32:
+        L = L.astype(np.float32)
+    new = refresh_values(L, seed=6)
+    b = torch.from_numpy(np.random.default_rng(4).standard_normal(L.n)).to(card, dtype)
+    pairs = (SpTRSV.build_pair(L, device=card, strategy="pallas_fused"),
+             SpTRSV.build_pair(L, device=card, strategy="levelset"))
+    for s, ref in zip(*pairs):
+        for values in (None, new):
+            if values is not None:
+                table = s._solve_fn.table
+                s.refresh(values)
+                ref.refresh(values)
+                assert s._solve_fn.table is table
+            fused_cuda.reset_launches()
+            x = s.solve(b)
+            torch.cuda.synchronize()
+            assert fused_cuda.launches == {"sptrsv_fused": 1, "sptrsv_fused_batched": 0}
+            assert _rel(x, ref.solve(b)) <= KERNEL_TOL[dtype]
 
 
 @pytest.mark.parametrize("kw", [dict(strategy="pallas_level"),
