@@ -57,6 +57,22 @@ Phases (any failure ends the run with a non-zero exit and no result line):
       (``repro_torch.launch.serve.main``) with its defaults, and two
       full-width layers on the card (bf16, the kernel) against the same
       weights on the CPU (f32, the plain versions);
+   e. the rest of the solver's surface on lung2 (f64): ``serial`` (one
+      solve each way) and ``levelset_unroll`` (m in {1, 32}) against
+      ``levelset``; ``auto`` on the committed ``"cuda"`` calibration row,
+      the rewrite left open and given (its plan, modelled costs and
+      backward error; phase 4 times it beside the fastest strategy);
+      ``sweep`` with the sweep count ``planned_sweeps`` certifies on the
+      IC(0) factor of ``poisson2d(332, 332)``, and with one sweep on lung2
+      (the levelset fallback spliced in); ``guard`` with injected
+      ``zero_pivot`` / ``nan_slab`` faults under each policy and in mixed
+      precision (bf16 storage, refined to the f64 tolerance); PCG on
+      ``poisson2d(332, 332)`` with IC(0) preconditioners (``auto``,
+      ``pallas_fused``, ``pallas_level``, 8 sweeps), one RHS and a batch
+      of 32: the true residual checked with scipy and the iteration count
+      within 2 of a host PCG (scipy's ``spsolve_triangular``, or the same
+      sweeps); then the ``"cuda"`` calibration row re-measured
+      (``repro_torch.bench.calibrate``) beside the committed one;
 4. CUDA-event times per solve and per kernel (median and range of three
    batches; a solve slower than the batch budget is timed once), beside
    each kernel's bound, its plain version and a library call, and the
@@ -152,6 +168,12 @@ CHAIN_N = 1000
 # a transpose pallas_fused batch whose first solve takes longer stays out
 # of the paths and the timings
 TRANSPOSE_FUSED_MAX_S = 5.0
+# phase 3e: PCG on the IC(0) factor of the 5-point Laplacian at lung2's
+# size (poisson2d(332, 332): n = 110,224), f64, against a host PCG with
+# scipy's triangular solves; the inexact preconditioner's sweep count, the
+# batch width, and how far the card's iteration count may be from the host's
+PCG_GRID, PCG_TOL, PCG_MAXITER = 332, 1e-8, 2000
+PCG_SWEEPS, PCG_M, PCG_ITER_SLACK = 8, 32, 2
 # prefill logits, card (bf16 weights and activations, the kernel) against
 # the CPU (f32, the plain versions) through two full-width layers: bf16
 # rounding, at the JAX package's bf16 attention tolerance
@@ -535,6 +557,299 @@ def lm_times(torch, dev, rng, cfg, model, params, flash_cuda, gqa_attention_ref)
     print(f"phase 4d: profile decode step {LM_SLOTS} slots: "
           + device_busy(torch, lambda: model.decode_step(params, toks, cache)))
     return ms, plain, bound, lib_ms
+
+
+def host_rss_gb() -> float:
+    """This process's resident host memory (``VmRSS``), GB."""
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) / 1e6
+    return float("nan")
+
+
+def host_pcg(A, b: np.ndarray, M, tol: float, maxiter: int) -> int:
+    """Iterations of textbook PCG on the host (scipy ``A``, numpy ``b``,
+    ``M(r)`` the preconditioner apply) to ``‖r‖ ≤ tol ‖b‖``."""
+    x = np.zeros_like(b)
+    r = b.copy()
+    bn = np.linalg.norm(b)
+    z = M(r)
+    p = z.copy()
+    rz = r @ z
+    for it in range(maxiter):
+        Ap = A @ p
+        alpha = rz / (p @ Ap)
+        x += alpha * p
+        r -= alpha * Ap
+        if np.linalg.norm(r) <= tol * bn:
+            return it + 1
+        z = M(r)
+        rz_new = r @ z
+        p = z + (rz_new / rz) * p
+        rz = rz_new
+    return maxiter
+
+
+def solver_surface(torch, dev, rng, L, levelset, scipy_csr, counts) -> dict:
+    """Phase 3e: ``serial`` and ``levelset_unroll`` on lung2, ``auto`` with
+    the rewrite open and given, ``sweep`` (certified on the IC(0) factor,
+    falling back on lung2), ``guard`` under injected faults and in mixed
+    precision, and PCG on ``poisson2d(PCG_GRID, PCG_GRID)`` with IC(0)
+    preconditioners against a host PCG.  Each part builds its solvers in a
+    function of its own and frees them before the next: the lung2
+    transpose's ELL width of 1,975 makes some of their host layouts
+    several GB.  Returns the ``auto`` solves' times, keyed ``(what,
+    transpose, m)`` as ``(pick, ms)``, for phase 4's comparison."""
+    import gc
+
+    import scipy.sparse as sp
+    from scipy.sparse.linalg import spsolve_triangular
+
+    from repro_torch.core import (GuardBreakdownError, GuardConfig,
+                                  RewriteConfig, SpTRSV, SweepConfig,
+                                  contraction_factor, make_ic_preconditioner,
+                                  make_ic_preconditioner_batched, pcg,
+                                  pcg_batched, planned_sweeps)
+    from repro_torch.core.levels import build_level_sets
+    from repro_torch.core.sweep import default_residual_tol
+    from repro_torch.sparse import ic0_factor, inject_values, poisson2d
+
+    A = scipy_csr(L)
+    rhs = {1: rng.standard_normal(L.n), WIDTHS[-1]: rng.standard_normal((L.n, WIDTHS[-1]))}
+    dev_rhs = {m: torch.from_numpy(b).to(dev) for m, b in rhs.items()}
+    base = {(s.transpose, m): s.solve(b) for s in levelset for m, b in dev_rhs.items()}
+    tol = KERNEL_TOL["float64"]
+
+    def serial_and_unroll():
+        """serial (one solve each way) and levelset_unroll against levelset"""
+        t0 = time.perf_counter()
+        serial = SpTRSV.build_pair(L, strategy="serial", device=dev)
+        unroll = SpTRSV.build_pair(L, strategy="levelset_unroll", device=dev)
+        print(f"phase 3e: built serial and levelset_unroll pairs on lung2 in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for s in serial:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = s.solve(dev_rhs[1])
+            torch.cuda.synchronize()
+            took = time.perf_counter() - t0
+            agree = rel_err(x, base[s.transpose, 1])
+            check(agree <= tol, f"serial T={s.transpose}: vs levelset {agree:.3e}")
+            print(f"phase 3e: serial f64 m=1 transpose={int(s.transpose)}: one "
+                  f"solve {took:.3f} s ({took / L.n * 1e6:.2f} us per row), vs "
+                  f"levelset {agree:.2e}")
+        for s in unroll:
+            for m, b in dev_rhs.items():
+                agree = rel_err(s.solve(b), base[s.transpose, m])
+                check(agree <= tol, f"levelset_unroll m={m} T={s.transpose}: vs "
+                      f"levelset {agree:.3e}")
+                ms = time_ms(torch, lambda: s.solve(b), warm=False)
+                print(f"phase 3e: levelset_unroll f64 m={m:2d} transpose="
+                      f"{int(s.transpose)}: {fmt_ms(ms)}, vs levelset {agree:.2e}")
+
+    def auto() -> dict:
+        """auto on the committed "cuda" row, the rewrite left open and given:
+        the plan, its backward error and its times"""
+        times = {}
+        for what, kw in (("rewrite open", {}),
+                         ("rewrite=RewriteConfig()", dict(rewrite=RewriteConfig()))):
+            t0 = time.perf_counter()
+            pair = SpTRSV.build_pair(L, strategy="auto", device=dev, **kw)
+            print(f"phase 3e: auto ({what}) pair built in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            for s in pair:
+                p = s.plan
+                pick = (p.strategy + (f"+rewrite:{p.rewrite}" if p.rewrite else "")
+                        + ("+coarsen" if p.coarsen else ""))
+                for m, b in dev_rhs.items():
+                    res = residual(A[s.transpose], s.solve(b).cpu().numpy(), rhs[m])
+                    check(res <= RESIDUAL_TOL["float64"],
+                          f"auto ({what}) m={m} T={s.transpose}: residual {res:.3e}")
+                    times[what, s.transpose, m] = (
+                        pick, time_ms(torch, lambda: s.solve(b), warm=False))
+                print(f"phase 3e: auto ({what}) transpose={int(s.transpose)}: "
+                      f"strategy {p.strategy}, coarsen {p.coarsen}, rewrite "
+                      f"{p.rewrite}, sweep_k {p.sweep_k}, residual {res:.2e} (m="
+                      f"{WIDTHS[-1]}); modelled costs "
+                      + json.dumps({k: round(v) for k, v in sorted(p.costs.items())}))
+        return times
+
+    def sweep(Lic):
+        """sweep: certified on the IC(0) factor, falling back on lung2"""
+        q = contraction_factor(Lic)
+        depth = build_level_sets(Lic).num_levels
+        k = planned_sweeps(q, depth, default_residual_tol(np.float64), depth)
+        check(k is not None, f"no certified sweep count for q={q}")
+        Aic = scipy_csr(Lic)
+        ic_rhs = {m: rng.standard_normal((Lic.n,) if m == 1 else (Lic.n, m))
+                  for m in WIDTHS}
+        for s in SpTRSV.build_pair(Lic, strategy="sweep", sweep=SweepConfig(k=k),
+                                   device=dev):
+            for m, b_np in ic_rhs.items():
+                b = torch.from_numpy(b_np).to(dev)
+                res = residual(Aic[s.transpose], s.solve(b).cpu().numpy(), b_np)
+                check(res <= RESIDUAL_TOL["float64"],
+                      f"sweep IC(0) m={m} T={s.transpose}: residual {res:.3e}")
+                ms = time_ms(torch, lambda: s.solve(b))
+                print(f"phase 3e: sweep IC(0) k={k} (q={q:.4f}, {depth} levels) "
+                      f"f64 m={m:2d} transpose={int(s.transpose)}: residual "
+                      f"{res:.2e}, {fmt_ms(ms)}; stats "
+                      f"{json.dumps(s.sweep_stats.report())}")
+        bz = dev_rhs[WIDTHS[-1]].clone()
+        bz[:, 1] = 0  # a column that verifies after one sweep: kept, not spliced
+        for s in SpTRSV.build_pair(L, strategy="sweep", sweep=SweepConfig(k=1),
+                                   device=dev):
+            want = levelset[int(s.transpose)].solve(bz)
+            agree = rel_err(s.solve(bz), want)
+            st = s.sweep_stats
+            check(agree <= tol and st.fallback_columns == WIDTHS[-1] - 1,
+                  f"sweep k=1 lung2 T={s.transpose}: vs levelset {agree:.3e}, "
+                  f"stats {st.report()}")
+            print(f"phase 3e: sweep k=1 lung2 f64 m={WIDTHS[-1]} transpose="
+                  f"{int(s.transpose)}: fallback spliced, vs levelset "
+                  f"{agree:.2e}; stats {json.dumps(st.report())}")
+
+    def guard_faults():
+        """guard: injected faults under each policy"""
+        faults = {kind: inject_values(L, kind, seed=0)
+                  for kind in ("zero_pivot", "nan_slab")}
+        b1 = dev_rhs[1]
+        for policy in ("refine", "fallback", "raise"):
+            s = SpTRSV.build(L, strategy="pallas_fused", device=dev,
+                             guard=GuardConfig(on_breakdown=policy))
+            res = residual(A[False], s.solve(b1).cpu().numpy(), rhs[1])
+            check(s.guard.stats.verified == 1 and res <= RESIDUAL_TOL["float64"],
+                  f"guard {policy}: clean solve {res:.3e}")
+            for kind, bad in faults.items():
+                before = dict(s.guard.stats.report())
+                try:
+                    s.refresh(bad, validate=False)
+                    x = s.solve(b1)
+                    outcome = "answer"
+                except GuardBreakdownError as err:
+                    outcome = f"raised: {err}"
+                st = s.guard.stats
+                if policy == "raise":
+                    check(outcome != "answer", f"guard raise {kind}: did not raise")
+                else:
+                    check(outcome == "answer", f"guard {policy} {kind}: {outcome}")
+                if policy == "refine":
+                    check(st.breakdown_columns > before["breakdown_columns"],
+                          f"guard refine {kind}: no breakdown recorded")
+                if policy == "fallback":
+                    check(st.fallback_solves > before["fallback_solves"]
+                          and bool(torch.isfinite(x).all()),
+                          f"guard fallback {kind}: no finite fallback answer")
+                print(f"phase 3e: guard {policy} {kind}: {outcome}; stats "
+                      f"{json.dumps(st.report())}")
+                s.refresh(L.data)
+
+    def guard_mixed(strategy, transpose):
+        """a mixed-precision guarded solve refined to the f64 tolerance"""
+        s = SpTRSV.build(L, strategy=strategy, transpose=transpose, device=dev,
+                         guard=GuardConfig(precision="mixed", refine_steps=4))
+        res = residual(A[transpose], s.solve(dev_rhs[1]).cpu().numpy(), rhs[1])
+        st = s.guard.stats
+        check(res <= RESIDUAL_TOL["float64"] and st.verified == 1,
+              f"guard mixed {strategy} T={transpose}: residual {res:.3e}")
+        print(f"phase 3e: guard mixed {strategy} f64 transpose={int(transpose)}: "
+              f"values {[str(v.dtype) for v in s._values]}, "
+              f"{st.last_refine_steps} refinement steps, residual {res:.2e}")
+
+    def pcg_runs(P, Lic):
+        """PCG against a host PCG with scipy's triangular solves (exact) and
+        with the same Jacobi sweeps (inexact)"""
+        Ps = scipy_csr(P)[False]
+        Lc, LcT = scipy_csr(Lic)[False], scipy_csr(Lic)[True]
+        diag = Lic.diagonal()
+        N = (Lc - sp.diags(diag)).tocsr()
+        NT = N.T.tocsr()
+
+        def jacobi(Nm, r):
+            x = r / diag
+            for _ in range(PCG_SWEEPS - 1):
+                x = (r - Nm @ x) / diag
+            return x
+
+        bp = rng.standard_normal(P.n)
+        Bp = rng.standard_normal((P.n, PCG_M))
+        Bp[:, 0] = bp
+        t0 = time.perf_counter()
+        host = {"exact": host_pcg(Ps, bp, lambda r: spsolve_triangular(
+                    LcT, spsolve_triangular(Lc, r, lower=True), lower=False),
+                    PCG_TOL, PCG_MAXITER),
+                "sweeps": host_pcg(Ps, bp, lambda r: jacobi(NT, jacobi(N, r)),
+                                   PCG_TOL, PCG_MAXITER)}
+        print(f"phase 3e: host PCG (scipy) iterations {json.dumps(host)} in "
+              f"{time.perf_counter() - t0:.1f} s")
+        b = torch.from_numpy(bp).to(dev)
+        B = torch.from_numpy(Bp).to(dev)
+        for name, kw in (("auto", dict(strategy="auto")),
+                         ("pallas_fused", dict(strategy="pallas_fused")),
+                         ("pallas_level", dict(strategy="pallas_level")),
+                         (f"sweeps={PCG_SWEEPS}", dict(sweeps=PCG_SWEEPS))):
+            M = make_ic_preconditioner(Lic, rewrite=None, device=dev, **kw)
+            Mb = make_ic_preconditioner_batched(Lic, rewrite=None, device=dev, **kw)
+            want = host["sweeps" if "sweeps" in kw else "exact"]
+            strategy = M.solvers[0].strategy
+            for m, run, rhs_t, rhs_np, Mx in (
+                    (1, lambda: pcg(P, b, M, tol=PCG_TOL, maxiter=PCG_MAXITER),
+                     b, bp, M),
+                    (PCG_M, lambda: pcg_batched(P, B, Mb, tol=PCG_TOL,
+                                                maxiter=PCG_MAXITER), B, Bp, Mb)):
+                c0 = counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = run()
+                torch.cuda.synchronize()
+                took = time.perf_counter() - t0
+                c1 = counts()
+                iters = np.atleast_1d(out.iters)
+                x = out.x.cpu().numpy().reshape(rhs_np.shape)
+                r = rhs_np - Ps @ x
+                rel = np.linalg.norm(r, axis=0) / np.linalg.norm(rhs_np, axis=0)
+                check(bool(np.all(out.converged)) and float(rel.max()) <= PCG_TOL,
+                      f"pcg {name} m={m}: converged {out.converged}, true "
+                      f"residual {rel.max():.3e}")
+                check(abs(int(iters[0]) - want) <= PCG_ITER_SLACK,
+                      f"pcg {name} m={m}: {iters[0]} iterations, host {want}")
+                apply_ms = time_ms(torch, lambda: Mx(rhs_t))
+                it = int(iters.max())
+                per_it = {k: round((c1[k] - c0[k]) / it, 3) for k in c1
+                          if c1[k] > c0[k]}
+                print(f"phase 3e: pcg {name} ({strategy}) f64 m={m:2d}: {it} "
+                      f"iterations (host {want}), true residual {rel.max():.2e}, "
+                      f"{took:.3f} s, {took / it * 1e3:.4f} ms per iteration, "
+                      f"preconditioner apply {fmt_ms(apply_ms)}; launches per "
+                      f"iteration {json.dumps(per_it)}")
+
+    serial_and_unroll()
+    gc.collect()
+    print(f"phase 3e: host memory {host_rss_gb():.1f} GB resident")
+    auto_times = auto()
+    gc.collect()
+    print(f"phase 3e: host memory {host_rss_gb():.1f} GB resident")
+    t0 = time.perf_counter()
+    P = poisson2d(PCG_GRID, PCG_GRID)
+    t_p = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Lic = ic0_factor(P)
+    print(f"phase 3e: poisson2d({PCG_GRID}, {PCG_GRID}) n={P.n} nnz={P.nnz} in "
+          f"{t_p:.1f} s, ic0_factor nnz={Lic.nnz} in {time.perf_counter() - t0:.1f} s")
+    sweep(Lic)
+    gc.collect()
+    guard_faults()
+    gc.collect()
+    # a transpose pallas_fused solver holds its 577 M-slot layout on the
+    # host: the mixed transpose runs on pallas_level
+    for strategy, transpose in (("pallas_fused", False), ("pallas_level", False),
+                                ("pallas_level", True)):
+        guard_mixed(strategy, transpose)
+        gc.collect()
+    print(f"phase 3e: host memory {host_rss_gb():.1f} GB resident")
+    pcg_runs(P, Lic)
+    gc.collect()
+    return auto_times
 
 
 def main() -> int:
@@ -1129,6 +1444,30 @@ def main() -> int:
                                    counts)
     lm_cpu_check(torch, dev, cfg, flash_cuda)
     print(f"phase 3d: LM path in {time.perf_counter() - t0:.1f} s")
+
+    # 3e: the rest of the solver's surface: serial, levelset_unroll, auto,
+    # sweep, guard and PCG
+    reset_counts()
+    t0 = time.perf_counter()
+    print(f"phase 3e: host memory {host_rss_gb():.1f} GB resident")
+    auto_times = solver_surface(torch, dev, rng, L64,
+                                solvers["levelset", "float64"], scipy_csr, counts)
+    torch.cuda.synchronize()
+    path_launches["surface"] = counts()
+    print(f"phase 3e: solver surface in {time.perf_counter() - t0:.1f} s; "
+          f"launches {json.dumps(path_launches['surface'])}")
+    for name in ("spmv_ell", "spmv_ell_batched", "sptrsv_fused",
+                 "sptrsv_fused_batched", "sptrsv_level", "sptrsv_level_batched"):
+        check(path_launches["surface"][name] > 0,
+              f"{name} never launched on the solver-surface path")
+    from repro_torch.bench.calibrate import measure
+    from repro_torch.core.calibrate import DEFAULT_CALIBRATIONS
+    t0 = time.perf_counter()
+    row, raw = measure("cuda")
+    print(f"phase 3e: calibration re-measured in {time.perf_counter() - t0:.1f} s: "
+          f"{json.dumps({k: round(v, 6) for k, v in raw.items()})}")
+    print(f"phase 3e: calibration measured  {row!r}")
+    print(f"phase 3e: calibration committed {DEFAULT_CALIBRATIONS['cuda']!r}")
     main_launches = {name: sum(p[name] for p in path_launches.values())
                      for name in KERNELS}
     for name in KERNELS:
@@ -1180,6 +1519,7 @@ def main() -> int:
 
     # -- phase 4: times -----------------------------------------------------
     fused_cuda.check_waits = False
+    solve_ms = {}
     for dt in mats:
         for m in WIDTHS:
             b = torch.from_numpy(rng.standard_normal(
@@ -1189,11 +1529,13 @@ def main() -> int:
                     if runs(tag, s, m):
                         # phase 3 ran every one of these solves already
                         ms = time_ms(torch, lambda: s.solve(b), warm=False)
+                        solve_ms[tag, dt, m, s.transpose] = ms[0]
                         print(f"phase 4: solve {tag:29s} {dt} m={m:2d} transpose="
                               f"{int(s.transpose)}: {fmt_ms(ms)}")
                 for s in rw_solvers[tag, dt]:
                     if runs(tag, s, m):
                         ms = time_ms(torch, lambda: s.solve(b), warm=False)
+                        solve_ms[f"rewrite:{tag}", dt, m, s.transpose] = ms[0]
                         print(f"phase 4: solve rewrite:{tag:21s} {dt} m={m:2d} "
                               f"transpose={int(s.transpose)}: {fmt_ms(ms)}")
             bb = torch.from_numpy(rng.standard_normal(
@@ -1208,6 +1550,16 @@ def main() -> int:
                 ms = time_ms(torch, lambda: s.solve(bw), warm=False)
                 print(f"phase 4: solve {'blocked (wide band)':29s} {dt} m={m:2d} "
                       f"transpose={int(s.transpose)}: {fmt_ms(ms)}")
+
+    # auto's pick (timed in phase 3e) beside the fastest strategy measured
+    # above: a finding, not a gate
+    for (what, transpose, m), (pick, ms) in auto_times.items():
+        timed = {k[0]: v for k, v in solve_ms.items()
+                 if k[1:] == ("float64", m, transpose)}
+        best = min(timed, key=timed.get)
+        print(f"phase 4: solve auto ({what}) -> {pick} f64 m={m:2d} transpose="
+              f"{int(transpose)}: {fmt_ms(ms)}; fastest measured {best} "
+              f"{timed[best]:.4f} ms")
 
     b1 = torch.from_numpy(rng.standard_normal(L64.n)).to(dev)
     for tag, s in (("pallas_level", solvers["pallas_level", "float64"][0]),

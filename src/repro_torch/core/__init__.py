@@ -1,15 +1,26 @@
-"""Host-side analysis, schedules and packed layouts, and the ``SpTRSV``
-solver of the port."""
+"""Host-side analysis, schedules and packed layouts, the ``SpTRSV`` solver
+of the port, its planner, sweep and guard layers, and PCG."""
 from .analysis import MatrixAnalysis, analyze
+from .calibrate import (BackendCalibration, DEFAULT_CALIBRATIONS,
+                        get_calibration, load_calibrations, save_calibrations)
 from .coarsen import (
     BlockSchedule,
+    BlockedCandidate,
     CoarsenConfig,
     CoarsenStats,
+    PlanDecision,
+    RewriteCandidate,
+    SweepCandidate,
+    blocked_candidate,
     build_block_schedule,
     coarsen_schedule,
     coarsen_stats,
+    plan_strategy,
+    schedule_cost,
+    should_consider_rewrite,
 )
-from .codegen import LevelSlab, Schedule, build_ell, build_schedule, stack_sub_slabs
+from .codegen import (LevelSlab, Schedule, build_ell, build_offdiag_ell,
+                      build_schedule, stack_sub_slabs)
 from .csr import CSRMatrix, eye_csr, from_coo, from_dense
 from .levels import (
     LevelSets,
@@ -41,13 +52,24 @@ from .rewrite import (
     replay_rewrite_values,
     rewrite_matrix,
 )
+from .guard import (GuardBreakdownError, GuardConfig, GuardStats, SolveGuard,
+                    repair_pivots, scan_values)
 from .solver import LAYOUTS, STRATEGIES, SpTRSV
+from .sweep import (SweepConfig, SweepStats, contraction_factor,
+                    planned_sweeps)
+from .pcg import (BatchedPCGResult, PCGResult, make_ic_preconditioner,
+                  make_ic_preconditioner_batched, pcg, pcg_batched)
 
 __all__ = [
     "MatrixAnalysis", "analyze",
-    "BlockSchedule", "CoarsenConfig", "CoarsenStats", "build_block_schedule",
-    "coarsen_schedule", "coarsen_stats",
-    "LevelSlab", "Schedule", "build_ell", "build_schedule", "stack_sub_slabs",
+    "BackendCalibration", "DEFAULT_CALIBRATIONS", "get_calibration",
+    "load_calibrations", "save_calibrations",
+    "BlockSchedule", "BlockedCandidate", "CoarsenConfig", "CoarsenStats",
+    "PlanDecision", "RewriteCandidate", "SweepCandidate", "blocked_candidate",
+    "build_block_schedule", "coarsen_schedule", "coarsen_stats",
+    "plan_strategy", "schedule_cost", "should_consider_rewrite",
+    "LevelSlab", "Schedule", "build_ell", "build_offdiag_ell",
+    "build_schedule", "stack_sub_slabs",
     "CSRMatrix", "eye_csr", "from_coo", "from_dense",
     "LevelSets", "SupernodeConfig", "Supernodes", "build_level_sets",
     "build_reverse_level_sets", "compute_criticality", "compute_levels",
@@ -57,5 +79,10 @@ __all__ = [
     "pack_blocked_values", "pack_values",
     "RewriteConfig", "RewritePlan", "RewriteReplayError", "RewriteResult",
     "RewriteStats", "replay_rewrite_values", "rewrite_matrix",
+    "GuardBreakdownError", "GuardConfig", "GuardStats", "SolveGuard",
+    "repair_pivots", "scan_values",
     "LAYOUTS", "STRATEGIES", "SpTRSV",
+    "SweepConfig", "SweepStats", "contraction_factor", "planned_sweeps",
+    "BatchedPCGResult", "PCGResult", "make_ic_preconditioner",
+    "make_ic_preconditioner_batched", "pcg", "pcg_batched",
 ]

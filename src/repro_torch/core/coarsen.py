@@ -16,13 +16,27 @@ group while the waste stays below the segments saved.
 The blocked (supernodal) schedule lives here too: :func:`build_block_schedule`
 levels the block-granular DAG of a supernode partition and packs each
 super-level into dense diagonal-block inverses plus an ELL panel.
+
+Strategy planner: :func:`plan_strategy` picks ``serial`` / ``levelset`` /
+``levelset_unroll`` / ``pallas_fused`` / ``sweep`` / ``blocked`` and the
+matrix transform (rewrite policy × coarsening) for
+``SpTRSV.build(..., strategy="auto")`` from one cost model whose
+coefficients come from the device's calibration row
+(:mod:`repro_torch.core.calibrate`).  Like the JAX planner it never prices
+``pallas_level``, and it prices the fused solve as the JAX package's fused
+layout executes: ``kmax`` ELL slots for every (lane-padded) row, though the
+port's single-RHS walk reads only each row's real entries.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, Optional
 
 import numpy as np
+import torch
 
+from .analysis import MatrixAnalysis
+from .calibrate import BackendCalibration, get_calibration
 from .codegen import LevelSlab, Schedule, slab_padded_flops
 from .csr import CSRMatrix
 from .levels import Supernodes, _propagate_levels
@@ -37,6 +51,14 @@ __all__ = [
     "BlockSlab",
     "BlockSchedule",
     "build_block_schedule",
+    "schedule_cost",
+    "PlanDecision",
+    "RewriteCandidate",
+    "SweepCandidate",
+    "BlockedCandidate",
+    "blocked_candidate",
+    "plan_strategy",
+    "should_consider_rewrite",
 ]
 
 # Cost of one barrier-separated segment, in FLOP-equivalents; only needs to
@@ -364,3 +386,215 @@ def build_block_schedule(
             val_src=val_src, lane_row=lane_row))
     return BlockSchedule(n=n, nnz=M.nnz, slabs=tuple(slabs),
                          level_of_block=blevel, supernodes=supernodes)
+
+
+# --------------------------------------------------------------------------
+# Transform planner
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class PlanDecision:
+    """Outcome of :func:`plan_strategy`, recorded on the built solver.
+
+    ``strategy``  executor picked (serial / levelset / levelset_unroll /
+                  pallas_fused / sweep / blocked)
+    ``coarsen``   whether schedule coarsening is applied to the winner
+    ``rewrite``   rewrite-policy tag ("thin" / "critical_path") when the
+                  planner chose to transform the matrix first, else None
+    ``costs``     every candidate's modelled per-solve cost; transform
+                  combinations are keyed ``<strategy>+rewrite:<tag>+coarsen``
+    ``sweep_k``   planned sweep count when ``strategy == "sweep"``, else None
+    """
+
+    strategy: str
+    coarsen: bool
+    reason: str
+    costs: Dict[str, float]
+    rewrite: Optional[str] = None
+    sweep_k: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class RewriteCandidate:
+    """A priced rewrite alternative: the schedule of the rewritten system
+    L', its coarsened counterpart, and the per-solve cost of the RHS
+    transform ``b' = E b`` (one padded ELL SpMV plus one launch)."""
+
+    schedule: Schedule
+    coarsened: Optional[Schedule]
+    rhs_cost: float
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepCandidate:
+    """A priced sweep alternative: the certified sweep count ``k``
+    (:func:`repro_torch.core.sweep.planned_sweeps`), the off-diagonal ELL
+    width ``ell_k`` of the ``D + N`` split, ``n``, and the contraction
+    factor ``q = ‖D⁻¹N‖_∞``."""
+
+    k: int
+    ell_k: int
+    n: int
+    contraction: float
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockedCandidate:
+    """A priced blocked alternative summarizing a :class:`BlockSchedule`:
+    one barrier per super-level, panel FLOPs at ``gather_cost``, dense
+    diagonal-block FLOPs at ``gemm_cost``, ``trsm_cost`` per block."""
+
+    segments: int
+    panel_flops: int
+    gemm_flops: int
+    num_blocks: int
+    supernode_count: int
+    mean_block_size: float
+
+
+def blocked_candidate(bsched: BlockSchedule) -> BlockedCandidate:
+    """Pricing summary of a built blocked schedule."""
+    sn = bsched.supernodes
+    return BlockedCandidate(
+        segments=bsched.num_segments,
+        panel_flops=bsched.panel_flops(),
+        gemm_flops=bsched.gemm_flops(),
+        num_blocks=bsched.num_blocks,
+        supernode_count=sn.num_supernodes,
+        mean_block_size=sn.mean_block_size,
+    )
+
+
+def schedule_cost(schedule: Schedule, *, unroll_threshold: int = 0,
+                  segment_cost: float = SEGMENT_COST,
+                  step_cost: float = SUBSTEP_COST,
+                  flop_cost: float = 1.0) -> float:
+    """Modelled per-solve cost of a level-set schedule: executed (padded)
+    FLOPs scaled by ``flop_cost``, ``segment_cost`` per segment, and
+    ``step_cost`` per coarsened chain sub-step."""
+    return (flop_cost * schedule.padded_flops(unroll_threshold)
+            + segment_cost * schedule.num_segments
+            + step_cost * (schedule.total_depth - schedule.num_segments))
+
+
+def _plan_target(device) -> str:
+    """The calibration key of a solver's device: ``cuda`` or ``cpu``."""
+    key = torch.device(device).type
+    if key not in ("cpu", "cuda"):
+        raise ValueError(f"no planner calibration for device {device!r}; "
+                         "expected 'cuda' or 'cpu'")
+    return key
+
+
+def should_consider_rewrite(analysis: MatrixAnalysis) -> bool:
+    """Gate for pricing rewrite candidates inside ``strategy="auto"``:
+    barrier-dominated schedules with substantial thin-level content, not
+    chain-like matrices (levels ~ n) and not shallow ones."""
+    return (analysis.num_levels >= 8
+            and analysis.num_levels <= 0.6 * analysis.n
+            and analysis.thin_fraction_2 >= 0.25)
+
+
+def plan_strategy(
+    analysis: MatrixAnalysis,
+    schedule: Schedule,
+    coarsened: Optional[Schedule] = None,
+    *,
+    unroll_threshold: int = 4,
+    segment_cost: Optional[float] = None,
+    device="cuda",
+    calibration: Optional[BackendCalibration] = None,
+    rewritten: Optional[Dict[str, RewriteCandidate]] = None,
+    sweep: Optional[SweepCandidate] = None,
+    blocked: Optional[BlockedCandidate] = None,
+    precision: str = "native",
+) -> PlanDecision:
+    """Pick an execution strategy and matrix transformation from the
+    analysis and schedule cost model — the JAX package's planner, priced
+    with the row of ``device`` (``"cuda"`` or ``"cpu"``).
+
+    ``schedule`` is the uncoarsened schedule of the untransformed system,
+    ``coarsened`` its coarsened counterpart when coarsening is on the table;
+    ``rewritten`` maps rewrite-policy tags to :class:`RewriteCandidate`s,
+    ``sweep`` and ``blocked`` price those executors.  Every combination is
+    priced by one model, so the choice is one ``min()`` over ``costs``.
+    ``calibration`` overrides the device's row and ``segment_cost`` just
+    its launch cost.  The fused solve is a candidate only where
+    ``fused_max_rows`` admits n (never on the ``cpu`` row).
+    ``pallas_level`` is not priced (nor is it by the JAX planner).
+    ``precision="mixed"`` scales every gather-bound term by
+    ``mixed_gather_discount`` (bf16 value storage under the guard)."""
+    label = _plan_target(device)
+    cal = calibration if calibration is not None else get_calibration(label)
+    if precision == "mixed":
+        cal = dataclasses.replace(
+            cal, gather_cost=cal.gather_cost * cal.mixed_gather_discount)
+    seg_cost = cal.launch_cost if segment_cost is None else segment_cost
+
+    costs: Dict[str, float] = {}
+    # serial: every row a latency-bound step; transforms never help it, so
+    # it is priced on the untransformed system only
+    costs["serial"] = analysis.solve_flops + analysis.n * (
+        cal.serial_step_cost + cal.serial_step_cost_scale * analysis.n)
+
+    def _levelset_costs(suffix: str, sched: Schedule,
+                        co: Optional[Schedule], extra: float) -> None:
+        for tag, s in (("", sched), ("+coarsen", co)):
+            if s is None:
+                continue
+            for strat, ut in (("levelset", 0),
+                              ("levelset_unroll", unroll_threshold)):
+                costs[f"{strat}{suffix}{tag}"] = extra + schedule_cost(
+                    s, unroll_threshold=ut, segment_cost=seg_cost,
+                    step_cost=cal.substep_cost, flop_cost=cal.gather_cost)
+
+    def _fused_cost(suffix: str, sched: Schedule, extra: float) -> None:
+        if analysis.n > cal.fused_max_rows:
+            return
+        kmax = max((s.K for s in sched.slabs), default=1)
+        lane = max(cal.lane_width, 1)
+        n_pad = -(-analysis.n // lane) * lane
+        launches = (sched.total_depth
+                    if cal.fused_num_launches == "per_level" else 1)
+        costs[f"pallas_fused{suffix}"] = (
+            extra + cal.gather_cost * (2 * kmax * n_pad + analysis.n)
+            + seg_cost * launches)
+
+    _levelset_costs("", schedule, coarsened, 0.0)
+    _fused_cost("", schedule, 0.0)
+    for tag, cand in (rewritten or {}).items():
+        _levelset_costs(f"+rewrite:{tag}", cand.schedule, cand.coarsened,
+                        cand.rhs_cost)
+        _fused_cost(f"+rewrite:{tag}", cand.schedule, cand.rhs_cost)
+    if sweep is not None:
+        # k sweeps + 1 verification pass, each a gather-sum over all rows
+        costs["sweep"] = cal.gather_cost * (sweep.k + 1) * (
+            2 * sweep.ell_k * sweep.n + sweep.n) + seg_cost
+    if blocked is not None:
+        costs["blocked"] = (
+            seg_cost * blocked.segments
+            + cal.gather_cost * blocked.panel_flops
+            + cal.gemm_cost * blocked.gemm_flops
+            + cal.trsm_cost * blocked.num_blocks)
+
+    best = min(costs, key=costs.get)
+    parts = best.split("+")
+    strategy = parts[0]
+    rewrite_tag = next((p[len("rewrite:"):] for p in parts
+                        if p.startswith("rewrite:")), None)
+    return PlanDecision(
+        strategy=strategy,
+        coarsen="coarsen" in parts,
+        rewrite=rewrite_tag,
+        sweep_k=sweep.k if (sweep is not None and strategy == "sweep")
+        else None,
+        reason=(
+            f"min modelled cost {costs[best]:.0f} among "
+            + ", ".join(f"{k}={v:.0f}" for k, v in sorted(costs.items()))
+            + f" (n={analysis.n}, levels={analysis.num_levels}, "
+            f"thin_fraction={analysis.thin_fraction_2:.2f}, backend={label}"
+            + (f", precision=mixed(gather x{cal.mixed_gather_discount:g})"
+               if precision == "mixed" else "")
+            + ")"
+        ),
+        costs=costs,
+    )

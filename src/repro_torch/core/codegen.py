@@ -14,7 +14,9 @@ import dataclasses
 from typing import List, Optional
 
 import numpy as np
+import torch
 
+from ..kernels.spmv_ell.ops import device_cols, device_row_len, spmv
 from .csr import CSRMatrix
 from .levels import LevelSets, build_level_sets, compute_upper_levels
 
@@ -22,8 +24,13 @@ __all__ = [
     "LevelSlab",
     "Schedule",
     "EllMatrix",
+    "DeviceEll",
     "build_schedule",
     "build_ell",
+    "build_offdiag_ell",
+    "device_ell",
+    "ell_spmv",
+    "serial_arrays",
     "slab_padded_flops",
     "stack_sub_slabs",
 ]
@@ -259,6 +266,95 @@ def build_ell(M: CSRMatrix) -> EllMatrix:
         vals[:k, i] = M.data[lo:hi]
         val_src[:k, i] = np.arange(lo, hi, dtype=np.int64)
     return EllMatrix(cols=cols, vals=vals, val_src=val_src)
+
+
+def build_offdiag_ell(M: CSRMatrix, *, upper: bool = False):
+    """Split a triangular matrix into its strictly-triangular ELL part ``N``
+    and diagonal ``D`` — the ``L = D + N`` decomposition the sweep executor
+    iterates on (:mod:`repro_torch.core.sweep`).
+
+    Returns ``(ell, diag, diag_src)``: ``ell`` the off-diagonal part as a
+    transposed ``(K, n)`` :class:`EllMatrix` with its value-source map,
+    ``diag`` the ``(n,)`` diagonal, ``diag_src`` its indices into
+    ``M.data``.  ``upper=True`` reads upper-triangular storage (diagonal
+    first per row, e.g. ``L.transpose()``)."""
+    row_nnz = M.row_nnz() - 1
+    K = max(int(row_nnz.max()) if row_nnz.size else 0, 1)
+    cols = np.zeros((K, M.n), dtype=np.int32)
+    vals = np.zeros((K, M.n), dtype=M.dtype)
+    val_src = np.full((K, M.n), -1, dtype=np.int64)
+    for i in range(M.n):
+        lo, hi = int(M.indptr[i]), int(M.indptr[i + 1])
+        sl = slice(lo + 1, hi) if upper else slice(lo, hi - 1)
+        k = sl.stop - sl.start
+        cols[:k, i] = M.indices[sl]
+        vals[:k, i] = M.data[sl]
+        val_src[:k, i] = np.arange(sl.start, sl.stop, dtype=np.int64)
+    diag = M.diagonal(first=upper)
+    diag_src = (M.indptr[:-1] if upper else M.indptr[1:] - 1).astype(np.int64)
+    return EllMatrix(cols=cols, vals=vals, val_src=val_src), diag, diag_src
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceEll:
+    """An :class:`EllMatrix` on one torch device, as the SpMV kernel reads
+    it: ``cols`` (int32 on a card, int64 on the CPU), ``vals`` and the row
+    lengths (``None`` on the CPU, whose plain version walks every slot)."""
+
+    cols: torch.Tensor
+    vals: torch.Tensor
+    row_len: Optional[torch.Tensor]
+
+
+def device_ell(ell: EllMatrix, n_v: int, device) -> DeviceEll:
+    """Upload ``ell`` once to ``device`` for :func:`ell_spmv` over vectors
+    of ``n_v`` rows.  Its real entries come first in every column (the ELL
+    builders' packing), so a row's length is its count of sourced slots."""
+    dev = torch.device(device)
+    return DeviceEll(cols=device_cols(ell.cols, n_v, dev),
+                     vals=torch.from_numpy(ell.vals).to(dev),
+                     row_len=device_row_len((ell.val_src >= 0).sum(0),
+                                            ell.cols, dev))
+
+
+def ell_spmv(ell: DeviceEll, v: torch.Tensor,
+             vals: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``y = M v`` for ELL-packed ``M`` on ``v``'s device: one SpMV kernel
+    launch on the card (each row stops at its length), the plain version on
+    the CPU.  ``v`` may be ``(n,)`` or ``(n, m)``; ``vals`` (a runtime value
+    buffer of ``ell.vals``'s shape) replaces the uploaded values, and is
+    cast to ``v``'s dtype."""
+    vals = ell.vals if vals is None else vals
+    return spmv(v, ell.cols, vals.to(v.dtype), ell.row_len)
+
+
+def serial_arrays(L: CSRMatrix, *, upper: bool = False):
+    """Row-major serial-scan arrays plus their refresh source maps.
+
+    Returns ``(cols (n, K), vals (n, K), diag (n,), val_src (n, K),
+    diag_src (n,), order (n,))``: ``order`` is the scan order (reversed for
+    backward substitution); ``val_src``/``diag_src`` index ``L.data``
+    (-1 = padding), so a value-only refresh re-packs the scan operands with
+    one vectorized gather."""
+    row_nnz = L.row_nnz() - 1
+    K = max(int(row_nnz.max()), 1)
+    n = L.n
+    cols = np.zeros((n, K), dtype=np.int32)
+    vals = np.zeros((n, K), dtype=L.dtype)
+    val_src = np.full((n, K), -1, dtype=np.int64)
+    for i in range(n):
+        lo, hi = int(L.indptr[i]), int(L.indptr[i + 1])
+        k = hi - lo - 1
+        sl = slice(lo + 1, hi) if upper else slice(lo, hi - 1)
+        cols[i, :k] = L.indices[sl]
+        vals[i, :k] = L.data[sl]
+        val_src[i, :k] = np.arange(sl.start, sl.stop, dtype=np.int64)
+    diag = L.diagonal(first=upper)
+    diag_src = (L.indptr[:-1] if upper else L.indptr[1:] - 1).astype(np.int64)
+    order = np.arange(n, dtype=np.int32)
+    if upper:
+        order = order[::-1]
+    return cols, vals, diag, val_src, diag_src, order
 
 
 def stack_sub_slabs(slab: LevelSlab, n: int, *, with_src: bool = False):

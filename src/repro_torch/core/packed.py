@@ -40,7 +40,8 @@ from ..kernels.spmv_ell.ops import device_cols, device_row_len, spmv
 from ..kernels.sptrsv_level.ref import level_walk_ref
 from ..kernels.sptrsv_level.table import LevelTable, make_level_table
 from ..kernels.trsm_block.ops import blocked_walk, make_walk_table
-from .codegen import Schedule, build_ell, stack_sub_slabs
+from .codegen import Schedule, build_ell, serial_arrays, stack_sub_slabs
+from .csr import CSRMatrix
 from .rewrite import RewriteResult
 
 __all__ = [
@@ -55,7 +56,12 @@ __all__ = [
     "row_lengths",
     "level_table",
     "make_packed_levelset_solver",
+    "make_packed_serial_solver",
     "make_packed_rhs_transform",
+    "ell_packed_stats",
+    "cast_value_buffers",
+    "MIXED_VALS_DTYPE",
+    "MIXED_DIAG_DTYPE",
     "PackedBlockSegment",
     "PackedBlockedLayout",
     "build_packed_blocked_layout",
@@ -324,11 +330,31 @@ def level_table(layout: PackedLayout, device) -> LevelTable:
                             device)
 
 
-def make_packed_levelset_solver(layout: PackedLayout, *, device):
+def _unrolled_terms(layout: PackedLayout, seg: PackedSegment, device):
+    """The real slots of a plain segment's ``R`` rows: ``(val index, column
+    position, row)`` int64 tensors, in slot order — the terms its
+    unrolled rows read (pad slots, ``vals_src < 0``, are skipped)."""
+    K, Rp, R = seg.K, seg.R_pad, seg.R
+    span = slice(seg.val_off, seg.val_off + K * Rp)
+    src = layout.vals_src[span].reshape(K, Rp)[:, :R]
+    k, r = np.nonzero(src >= 0)
+    vidx = seg.val_off + k * Rp + r
+    cidx = layout.cols_flat[vidx]
+    return tuple(torch.from_numpy(a.astype(np.int64)).to(device)
+                 for a in (vidx, cidx, r))
+
+
+def make_packed_levelset_solver(layout: PackedLayout, *, device,
+                                unroll_threshold: int = 0):
     """Permuted-space level-set executor in plain torch ops: one
     gather/FMA/divide per wavefront (the level kernel's plain version,
     :func:`repro_torch.kernels.sptrsv_level.ref.level_walk_ref`), a Python
     loop over a chain's ``depth`` sub-steps.
+
+    ``unroll_threshold > 0`` is ``strategy="levelset_unroll"``: a plain
+    segment of at most that many rows is computed from its rows' real
+    entries only (the JAX package emits such a segment as scalar code with
+    the pad slots left out), and writes its ``R`` rows, not ``R_pad``.
 
     Returns ``solve(b, values)`` with ``values = (vals_flat, diag_flat)`` as
     tensors on ``device``.  ``b`` may be ``(n,)`` or ``(n, m)``; values are
@@ -338,17 +364,83 @@ def make_packed_levelset_solver(layout: PackedLayout, *, device):
     cols_flat = torch.from_numpy(layout.cols_flat.astype(np.int64)).to(dev)
     perm = torch.from_numpy(layout.perm).to(dev)
     pos = torch.from_numpy(layout.pos).to(dev)
-    table = level_table(layout, dev)
+    geometry, sub_offs = segment_table(layout)
+    row_len = row_lengths(layout)
+    # runs of level-walk segments between the unrolled ones, in order
+    program, run = [], []
+    for i, seg in enumerate(layout.segments):
+        if seg.kind != "chain" and seg.R <= unroll_threshold:
+            if run:
+                program.append(make_level_table(geometry[run], sub_offs,
+                                                row_len, dev))
+                run = []
+            program.append((seg, _unrolled_terms(layout, seg, dev)))
+        else:
+            run.append(i)
+    if run:
+        program.append(make_level_table(geometry[run], sub_offs, row_len, dev))
 
     def solve(b: torch.Tensor, values) -> torch.Tensor:
         vals_flat, diag_flat = values
+        vf, df = vals_flat.to(b.dtype), diag_flat.to(b.dtype)
         bhat = permute_rhs(b, perm, n_pad)
         x = torch.zeros_like(bhat)
-        level_walk_ref(x, bhat, cols_flat, vals_flat.to(b.dtype),
-                       diag_flat.to(b.dtype), table)
+        for step in program:
+            if isinstance(step, LevelTable):
+                level_walk_ref(x, bhat, cols_flat, vf, df, step)
+                continue
+            seg, (vidx, cidx, ridx) = step
+            o, R = seg.off, seg.R
+            t = vf[vidx] * x[cidx] if x.dim() == 1 \
+                else vf[vidx][:, None] * x[cidx]
+            s = torch.zeros_like(x[o: o + R]).index_add_(0, ridx, t)
+            d = df[seg.diag_off: seg.diag_off + R]
+            x[o: o + R] = (bhat[o: o + R] - s) / (d if x.dim() == 1
+                                                 else d[:, None])
         return x.index_select(0, pos)
 
     return solve
+
+
+def make_packed_serial_solver(L: CSRMatrix, *, upper: bool = False, device):
+    """Row-serial substitution (the paper's Algorithm 1) in torch ops: a
+    Python loop over the rows in scan order, each row one gather, FMA-sum
+    and divide of its ``K`` slots (pads included, as the JAX package's
+    ``lax.scan`` reads them).  Every row is a handful of device operations,
+    so a solve costs on the order of ``n`` launches: the correctness
+    baseline, never the fast path.
+
+    Returns ``(solve(b, values), values0, repack)``: ``values0`` are the
+    scan-ordered ``(vals (n, K), diag (n,))`` tensors on ``device``;
+    ``repack(data)`` rebuilds them, as numpy arrays, for new matrix values
+    of the same pattern."""
+    dev = torch.device(device)
+    cols, vals, diag, val_src, diag_src, order = serial_arrays(L, upper=upper)
+    cols_o = torch.from_numpy(cols[order].astype(np.int64)).to(dev)
+    idx = torch.from_numpy(order.astype(np.int64)).to(dev)
+    rows = order.tolist()
+    dtype = vals.dtype
+    del cols, vals  # repack rebuilds the values from the source maps alone
+
+    def repack(data: np.ndarray):
+        v = gather_src(data, val_src, 0.0, dtype)
+        d = np.asarray(data)[diag_src].astype(dtype, copy=False)
+        return np.ascontiguousarray(v[order]), np.ascontiguousarray(d[order])
+
+    values0 = tuple(torch.from_numpy(a).to(dev) for a in repack(L.data))
+
+    def solve(b: torch.Tensor, values) -> torch.Tensor:
+        vals_o, diag_o = (v.to(b.dtype) for v in values)
+        if b.dim() == 2:
+            vals_o = vals_o[:, :, None]
+        bo = b.index_select(0, idx)
+        x = torch.zeros_like(b)
+        for t, i in enumerate(rows):
+            s = (vals_o[t] * x[cols_o[t]]).sum(0)
+            x[i] = (bo[t] - s) / diag_o[t]
+        return x
+
+    return solve, values0, repack
 
 
 # --------------------------------------------------------------------------
@@ -537,6 +629,39 @@ def make_packed_blocked_solver(layout: PackedBlockedLayout, *, device):
         return x.index_select(0, pos)
 
     return solve
+
+
+def ell_packed_stats(ell, diag: np.ndarray, *, n: int) -> PackedStats:
+    """:class:`PackedStats` of a whole-matrix ELL layout (the sweep
+    executor's ``D + N`` split): one segment, no permutation, the padding
+    share read off the value-source map."""
+    pad = int((ell.val_src < 0).sum())
+    return PackedStats(
+        permutation_applied=False,
+        value_bytes=ell.vals.nbytes + diag.nbytes,
+        index_bytes=ell.cols.nbytes,
+        padded_value_bytes=pad * ell.vals.itemsize,
+        n_pad=n,
+        num_segments=1,
+    )
+
+
+# Mixed-precision storage (the guard's ``precision="mixed"``): bf16 for the
+# O(nnz) off-diagonal / panel stream, f32 for the diagonal or inverted
+# diagonal blocks — refinement against the full-precision residual stalls
+# near 4e-3 per step with bf16 pivots, and the diagonal is O(n) of the bytes.
+MIXED_VALS_DTYPE = torch.bfloat16
+MIXED_DIAG_DTYPE = torch.float32
+
+
+def cast_value_buffers(values) -> tuple:
+    """A runtime value tuple in mixed-precision storage: the first buffer
+    (off-diagonal / panel values) as :data:`MIXED_VALS_DTYPE`, every other
+    one as :data:`MIXED_DIAG_DTYPE`, new tensors on the same device.  Every executor casts
+    its buffers to the RHS dtype at solve time, so no kernel reads bf16;
+    ``refresh`` copies new values into these buffers, which casts them."""
+    vals, *rest = values
+    return (vals.to(MIXED_VALS_DTYPE), *(r.to(MIXED_DIAG_DTYPE) for r in rest))
 
 
 def make_packed_rhs_transform(res: RewriteResult, *, device):

@@ -8,30 +8,51 @@ executor tied together, on an explicit torch device.
     fwd, bwd = SpTRSV.build_pair(L, device="cuda")         # one analysis
     solver.refresh(new_data)     # same pattern, new values, in place
 
-Strategies ported so far (all in ``layout="permuted"``):
+Strategies (all in ``layout="permuted"``):
 
-``levelset``       the packed level-set executor in plain torch ops — the
-                   JAX package's default, kept as the baseline
-``pallas_level``   one CUDA level-kernel launch per segment
-                   (:mod:`repro_torch.kernels.sptrsv_level`): a wavefront,
-                   or a coarsened chain walked by one thread block
-``pallas_fused``   the whole solve as one CUDA launch
-                   (:mod:`repro_torch.kernels.sptrsv_fused`): for one RHS
-                   a synchronisation-free walk in which each row waits
-                   only for the rows it reads, for a batch a cooperative
-                   grid with a barrier per wavefront span
-``blocked``        supernodal: the whole solve as one CUDA launch that
-                   walks every super-level's panel update and batched
-                   dense diagonal-block apply in order
-                   (:mod:`repro_torch.kernels.trsm_block`, the blocked walk)
+``serial``          row-serial substitution (the paper's Algorithm 1) as a
+                    Python loop over rows in torch ops: the correctness
+                    baseline, a few launches per row
+``levelset``        the packed level-set executor in plain torch ops — the
+                    JAX package's default, kept as the baseline
+``levelset_unroll`` the same, with segments of at most ``unroll_threshold``
+                    rows computed from their real entries only
+``pallas_level``    one CUDA level-kernel launch per segment
+                    (:mod:`repro_torch.kernels.sptrsv_level`): a wavefront,
+                    or a coarsened chain walked by one thread block
+``pallas_fused``    the whole solve as one CUDA launch
+                    (:mod:`repro_torch.kernels.sptrsv_fused`): for one RHS
+                    a synchronisation-free walk in which each row waits
+                    only for the rows it reads, for a batch a cooperative
+                    grid with a barrier per wavefront span
+``blocked``         supernodal: the whole solve as one CUDA launch that
+                    walks every super-level's panel update and batched
+                    dense diagonal-block apply in order
+                    (:mod:`repro_torch.kernels.trsm_block`, the blocked walk)
+``sweep``           sync-free speculative solve-then-correct
+                    (:mod:`repro_torch.core.sweep`): ``k`` Jacobi sweeps,
+                    each one SpMV launch, a verified residual and an exact
+                    fallback for the columns that miss
+                    (``sweep=SweepConfig(k, residual_tol, fallback)``)
+``auto``            the transform planner
+                    (:func:`repro_torch.core.coarsen.plan_strategy`): picks
+                    the strategy and the transform (rewrite policy ×
+                    coarsening) from the device's calibration row
+                    (:mod:`repro_torch.core.calibrate`); the decision is
+                    ``solver.plan``.  Like the JAX planner it never picks
+                    ``pallas_level``.
 
 ``rewrite=RewriteConfig(...)`` applies the paper's equation rewriting
 before any of them: the solve runs on the rewritten ``L'`` after the RHS
-transform ``b' = E b``, one SpMV launch per solve.
+transform ``b' = E b``, one SpMV launch per solve.  ``guard=True`` or a
+:class:`~repro_torch.core.guard.GuardConfig` wraps any of them in the
+guarded execution layer (verify against the original system, refine,
+breakdown policy; ``precision="mixed"`` stores bf16 off-diagonal values).
+:meth:`SpTRSV.build_cold` builds the cheapest exact pair (``serial``).
 
 On ``device="cpu"`` the kernel strategies run their kernels' plain torch
-versions.  Every other strategy or option of the JAX package raises
-``NotImplementedError`` naming its ROADMAP item.
+versions.  ``strategy="distributed"``, ``layout="scatter"`` and ``mesh=``
+raise ``NotImplementedError`` naming their ROADMAP item.
 
 Value buffers are persistent device tensors: :meth:`SpTRSV.refresh`
 re-packs new values with one vectorized gather and ``copy_``s them into the
@@ -48,31 +69,36 @@ import torch
 
 from ..kernels.backend import resolve_device
 from .analysis import MatrixAnalysis, analyze
-from .coarsen import (BlockSchedule, CoarsenConfig, build_block_schedule,
-                      coarsen_schedule)
+from .coarsen import (SEGMENT_COST, BlockSchedule, CoarsenConfig, PlanDecision,
+                      RewriteCandidate, SweepCandidate, blocked_candidate,
+                      build_block_schedule, coarsen_schedule, plan_strategy,
+                      should_consider_rewrite)
 from .codegen import Schedule, build_schedule
 from .csr import CSRMatrix
+from .guard import GuardConfig, SolveGuard, scan_values
 from .levels import (LevelSets, SupernodeConfig, Supernodes, build_level_sets,
                      build_reverse_level_sets, detect_supernodes)
 from .packed import (PackedStats, build_packed_blocked_layout,
-                     build_packed_layout, make_packed_blocked_solver,
-                     make_packed_levelset_solver, make_packed_rhs_transform,
+                     build_packed_layout, cast_value_buffers, ell_packed_stats,
+                     make_packed_blocked_solver, make_packed_levelset_solver,
+                     make_packed_rhs_transform, make_packed_serial_solver,
                      pack_blocked_values, pack_values)
 from .rewrite import (RewriteConfig, RewriteReplayError, RewriteResult,
                       replay_rewrite_values, rewrite_matrix)
+from .sweep import (SweepConfig, SweepStats, build_sweep_layout,
+                    contraction_factor, default_residual_tol,
+                    make_sweep_solver, pack_sweep_values, planned_sweeps)
 
 __all__ = ["SpTRSV", "STRATEGIES", "LAYOUTS"]
 
 logger = logging.getLogger(__name__)
 
-STRATEGIES = ("levelset", "pallas_level", "pallas_fused", "blocked")
+STRATEGIES = ("serial", "levelset", "levelset_unroll", "pallas_level",
+              "pallas_fused", "sweep", "blocked", "auto")
 LAYOUTS = ("permuted",)
 
 # What the JAX package offers and the port does not yet: ROADMAP queue A.
-_UNPORTED_STRATEGIES = {
-    "serial": "A2", "levelset_unroll": "A2", "auto": "A6", "sweep": "A7",
-    "distributed": "A10",
-}
+_UNPORTED_STRATEGIES = {"distributed": "A10"}
 
 
 def _not_ported(what: str, item: str):
@@ -99,15 +125,39 @@ def _as_rewrite_config(rewrite) -> Optional[RewriteConfig]:
 
 
 def _as_supernode_config(supernodes) -> SupernodeConfig:
-    """None/True/False → the default detection config (as in the JAX
-    package, where ``False`` only keeps ``blocked`` out of the ``auto``
-    planner), a SupernodeConfig → itself."""
+    """None/True/False → the default detection config (``False`` also keeps
+    ``blocked`` out of the ``auto`` planner), a SupernodeConfig → itself."""
     if supernodes is None or supernodes is True or supernodes is False:
         return SupernodeConfig()
     if not isinstance(supernodes, SupernodeConfig):
         raise TypeError(
             f"supernodes must be a bool or SupernodeConfig, got {supernodes!r}")
     return supernodes
+
+
+def _as_guard_config(guard) -> Optional[GuardConfig]:
+    """None/False → unguarded, True → default config, a GuardConfig →
+    itself."""
+    if guard is None or guard is False:
+        return None
+    if guard is True:
+        return GuardConfig()
+    if not isinstance(guard, GuardConfig):
+        raise TypeError(f"guard must be a bool or GuardConfig, got {guard!r}")
+    return guard
+
+
+def _as_sweep_config(sweep) -> Optional[SweepConfig]:
+    """None/False → off (``strategy="sweep"`` still gets the default;
+    ``False`` also keeps sweeps out of the ``auto`` planner), True → default
+    config, a SweepConfig → itself."""
+    if sweep is None or sweep is False:
+        return None
+    if sweep is True:
+        return SweepConfig()
+    if not isinstance(sweep, SweepConfig):
+        raise TypeError(f"sweep must be a bool or SweepConfig, got {sweep!r}")
+    return sweep
 
 
 def _build_options(*, strategy: str = "levelset", unroll_threshold: int = 4,
@@ -118,7 +168,10 @@ def _build_options(*, strategy: str = "levelset", unroll_threshold: int = 4,
     """Check the options of :meth:`SpTRSV.build` / :meth:`SpTRSV.build_pair`
     and return the keyword arguments of ``SpTRSV._build_system``.  Options
     of the JAX package that are not ported raise ``NotImplementedError``
-    naming their ROADMAP item; unknown values raise ``ValueError``."""
+    naming their ROADMAP item; unknown or ill-typed values raise
+    ``ValueError`` / ``TypeError``.  ``coarsen``, ``sweep`` and
+    ``supernodes`` pass through as given, because ``False`` differs from
+    ``None`` for the ``auto`` planner."""
     if strategy in _UNPORTED_STRATEGIES:
         _not_ported(f"strategy={strategy!r}", _UNPORTED_STRATEGIES[strategy])
     if strategy not in STRATEGIES:
@@ -127,30 +180,21 @@ def _build_options(*, strategy: str = "levelset", unroll_threshold: int = 4,
         _not_ported("layout='scatter'", "A2")
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}; ported: {LAYOUTS}")
-    for value, name, item in ((guard, "guard=", "A7"), (sweep, "sweep=", "A7"),
-                              (mesh, "mesh=", "A10")):
-        if value is not None:
-            _not_ported(name, item)
+    if mesh is not None:
+        _not_ported("mesh=", "A10")
     if block_kernel != "auto":
         # the JAX option picks Pallas or dot_general; the port always runs
         # the kernel on the card and its plain version on the CPU
         raise ValueError(f"block_kernel={block_kernel!r}: the port takes "
                          "'auto' only")
+    _as_coarsen_config(coarsen)
+    _as_sweep_config(sweep)
+    _as_supernode_config(supernodes)
     return dict(strategy=strategy, unroll_threshold=unroll_threshold,
-                bucket_pad_ratio=bucket_pad_ratio,
-                coarsen=_as_coarsen_config(coarsen),
+                bucket_pad_ratio=bucket_pad_ratio, coarsen=coarsen,
                 rewrite=_as_rewrite_config(rewrite),
-                supernodes=_as_supernode_config(supernodes),
-                device=resolve_device(device))
-
-
-def _scan_values(data: np.ndarray, diag_src: np.ndarray):
-    """O(nnz) value health scan: ``(nonfinite, bad_pivots)`` counts; a pivot
-    is bad when non-finite or exactly zero."""
-    nonfinite = int(data.size - np.count_nonzero(np.isfinite(data)))
-    d = data[diag_src]
-    bad = int(np.count_nonzero(~np.isfinite(d) | (d == 0)))
-    return nonfinite, bad
+                guard=_as_guard_config(guard), sweep=sweep,
+                supernodes=supernodes, device=resolve_device(device))
 
 
 @dataclasses.dataclass
@@ -180,7 +224,7 @@ class SpTRSV:
     ``transpose=True`` solvers execute the backward sweep ``Lᵀ x = b``; the
     executor is the same, only the schedule (backward level sets,
     column-packed slabs) differs.  ``schedule`` is ``None`` for
-    ``blocked``, which runs ``block_schedule``."""
+    ``blocked`` (which runs ``block_schedule``), ``serial`` and ``sweep``."""
 
     n: int
     strategy: str
@@ -196,27 +240,37 @@ class SpTRSV:
     block_schedule: Optional[BlockSchedule] = None
     supernodes: Optional[Supernodes] = None
     rewrite_result: Optional[RewriteResult] = None
+    plan: Optional[PlanDecision] = None       # strategy="auto" only
+    sweep_stats: Optional[SweepStats] = None  # strategy="sweep" only
+    guard: Optional[SolveGuard] = None        # guard=
     _rhs_fn: Optional[Callable] = None
     _e_values: Optional[torch.Tensor] = None
+    _sweep_exec: Optional[Callable] = None
 
     @staticmethod
     def build(L: CSRMatrix, *, transpose: bool = False, **options) -> "SpTRSV":
         """Build a solver for ``L x = b`` (or ``Lᵀ x = b`` with
         ``transpose=True``).  ``L`` is always the lower-triangular factor.
 
-        Options: ``strategy`` (``"levelset"``, ``"pallas_level"``,
-        ``"pallas_fused"``, ``"blocked"``), ``device`` (``"cuda"``, the
-        default, or ``"cpu"``), ``rewrite`` (a :class:`RewriteConfig`:
-        equation rewriting before the schedule is built, for every
-        strategy), ``coarsen`` (True / :class:`CoarsenConfig`: merge
-        adjacent levels into chained super-level slabs; ``pallas_fused``
-        walks every wavefront anyway), ``supernodes`` (a
-        :class:`SupernodeConfig` for ``blocked``; ``block_kernel`` takes
-        ``"auto"`` only), ``unroll_threshold`` (enters only the coarsening
-        cost model, as in the JAX package), ``bucket_pad_ratio`` (> 1 splits
-        levels into nnz buckets) and ``layout="permuted"``.  ``guard``,
-        ``sweep`` and ``mesh`` are not ported yet and raise
-        ``NotImplementedError`` when given."""
+        Options: ``strategy`` (see the module docstring; default
+        ``"levelset"``), ``device`` (``"cuda"``, the default, or ``"cpu"``),
+        ``rewrite`` (a :class:`RewriteConfig`: equation rewriting before the
+        schedule is built, for every strategy; with ``auto`` left ``None``
+        the planner weighs the ``thin`` and ``critical_path`` policies),
+        ``coarsen`` (True / :class:`CoarsenConfig`: merge adjacent levels
+        into chained super-level slabs; ``False`` keeps coarsening out of
+        ``auto``), ``sweep`` (True / :class:`SweepConfig`: the sweep
+        executor's ``k``, tolerance and fallback; caps the sweeps ``auto``
+        may certify, ``False`` keeps them out), ``guard`` (True /
+        :class:`GuardConfig`: verify every solve against the original
+        system, refine, apply the breakdown policy; ``precision="mixed"``
+        stores bf16 off-diagonal and f32 diagonal buffers), ``supernodes``
+        (a :class:`SupernodeConfig` for ``blocked``; ``False`` keeps it out
+        of ``auto``; ``block_kernel`` takes ``"auto"`` only),
+        ``unroll_threshold`` (``levelset_unroll``'s segment width, and the
+        coarsening cost model's), ``bucket_pad_ratio`` (> 1 splits levels
+        into nnz buckets) and ``layout="permuted"``.  ``mesh`` is not
+        ported yet and raises ``NotImplementedError``."""
         opts = _build_options(**options)
         if not L.is_lower_triangular():
             raise ValueError("SpTRSV requires lower-triangular L with nonzero diagonal")
@@ -228,6 +282,21 @@ class SpTRSV:
             values_map = None
         return SpTRSV._build_system(system, levels, upper=transpose, source=L,
                                     values_map=values_map, **opts)
+
+    @staticmethod
+    def build_cold(L: CSRMatrix, *, transpose_too: bool = False,
+                   **options) -> tuple["SpTRSV", Optional["SpTRSV"]]:
+        """The cheapest build for a pattern never seen before: the
+        ``serial`` executor, no planner probes, no rewrite candidates, no
+        supernode detection, no schedule packing.  Returns ``(forward,
+        backward)``; ``backward`` is ``None`` unless ``transpose_too``
+        (then both come from one analysis through :meth:`build_pair`).
+        Other options (``guard=``, ``device=``, ...) pass through;
+        ``strategy`` is pinned to ``"serial"``."""
+        options.pop("strategy", None)
+        if transpose_too:
+            return SpTRSV.build_pair(L, strategy="serial", **options)
+        return SpTRSV.build(L, strategy="serial", **options), None
 
     @staticmethod
     def build_pair(L: CSRMatrix, **options) -> tuple["SpTRSV", "SpTRSV"]:
@@ -256,9 +325,11 @@ class SpTRSV:
         strategy: str,
         unroll_threshold: int,
         bucket_pad_ratio: float,
-        coarsen: Optional[CoarsenConfig],
+        coarsen,
         rewrite: Optional[RewriteConfig],
-        supernodes: SupernodeConfig,
+        guard: Optional[GuardConfig],
+        sweep,
+        supernodes,
         device: torch.device,
         source: CSRMatrix,
         values_map: Optional[np.ndarray],
@@ -266,56 +337,170 @@ class SpTRSV:
         """``system`` is the triangular matrix actually solved (``L``
         forward, ``L.transpose()`` backward) with its level sets analyzed;
         ``source``/``values_map`` record where its values came from.  With
-        ``rewrite`` the executor runs on the rewritten ``target`` (``L'``)
-        and the solve first applies ``b' = E b``."""
+        ``rewrite`` (or a rewrite the planner adopts) the executor runs on
+        the rewritten ``target`` (``L'``) and the solve first applies
+        ``b' = E b``."""
         build_kwargs = dict(
             upper=upper, strategy=strategy, unroll_threshold=unroll_threshold,
             bucket_pad_ratio=bucket_pad_ratio, coarsen=coarsen,
-            rewrite=rewrite, supernodes=supernodes, device=device)
+            rewrite=rewrite, guard=guard, sweep=sweep, supernodes=supernodes,
+            device=device)
         analysis = analyze(system, levels, upper=upper)
+        ccfg = _as_coarsen_config(coarsen)
+        scfg = _as_sweep_config(sweep)
+        sncfg = _as_supernode_config(supernodes)
+        if strategy == "sweep" and scfg is None:
+            scfg = SweepConfig()
         rres = None
         target, target_levels = system, levels
-        rhs_fn = e_values = e_repack = None
         if rewrite is not None:
             rres = rewrite_matrix(system, levels, rewrite, upper=upper)
             target, target_levels = rres.L, rres.levels
-            rhs_fn, e_values, e_repack = make_packed_rhs_transform(
-                rres, device=device)
-        schedule = block_schedule = None
-        if strategy != "blocked":
-            schedule = build_schedule(target, target_levels, upper=upper,
-                                      bucket_pad_ratio=bucket_pad_ratio)
-            if coarsen is not None and strategy != "pallas_fused":
-                schedule = coarsen_schedule(schedule, coarsen,
-                                            unroll_threshold=unroll_threshold)
-        if strategy == "blocked":
+
+        memo: dict = {}
+
+        def _schedule() -> Schedule:
+            if "base" not in memo:
+                memo["base"] = build_schedule(
+                    target, target_levels, upper=upper,
+                    bucket_pad_ratio=bucket_pad_ratio)
+            return memo["base"]
+
+        def _coarsened(cfg: CoarsenConfig) -> Schedule:
+            if "coarse" not in memo:
+                memo["coarse"] = coarsen_schedule(
+                    _schedule(), cfg, unroll_threshold=unroll_threshold)
+            return memo["coarse"]
+
+        def _supernodes() -> Supernodes:
             # detection and packing run on the (possibly rewritten) target,
             # so blocked composes with rewriting like every other executor
-            block_schedule = build_block_schedule(
-                target, detect_supernodes(target, upper=upper,
-                                          config=supernodes), upper=upper)
-            blay = build_packed_blocked_layout(block_schedule)
-            fn = make_packed_blocked_solver(blay, device=device)
-            values = tuple(torch.from_numpy(a).to(device)
-                           for a in pack_blocked_values(blay, target.data))
-            repack = lambda data, _bl=blay: pack_blocked_values(_bl, data)  # noqa: E731
-            packed_stats = blay.stats()
-        elif strategy == "levelset":
+            if "sn" not in memo:
+                memo["sn"] = detect_supernodes(target, upper=upper,
+                                               config=sncfg)
+            return memo["sn"]
+
+        def _block_schedule() -> BlockSchedule:
+            if "blocked" not in memo:
+                memo["blocked"] = build_block_schedule(
+                    target, _supernodes(), upper=upper)
+            return memo["blocked"]
+
+        plan = None
+        if strategy == "auto":
+            plan_ccfg = ccfg if ccfg is not None else (
+                None if coarsen is False else CoarsenConfig())
+            # rewrite candidates are built and priced like everything else
+            # when the caller left the rewrite open and the schedule is
+            # barrier-dominated
+            cands, cand_artifacts = {}, {}
+            if rewrite is None and should_consider_rewrite(analysis):
+                for policy in ("thin", "critical_path"):
+                    rr = rewrite_matrix(system, levels,
+                                        RewriteConfig(policy=policy),
+                                        upper=upper)
+                    if rr.stats.rows_rewritten == 0:
+                        continue
+                    sched_r = build_schedule(
+                        rr.L, rr.levels, upper=upper,
+                        bucket_pad_ratio=bucket_pad_ratio)
+                    co_r = (coarsen_schedule(sched_r, plan_ccfg,
+                                             unroll_threshold=unroll_threshold)
+                            if plan_ccfg is not None else None)
+                    # b' = E b: one padded ELL SpMV plus one launch
+                    k_e = int(np.diff(rr.E.indptr).max())
+                    cands[policy] = RewriteCandidate(
+                        schedule=sched_r, coarsened=co_r,
+                        rhs_cost=2.0 * k_e * system.n + SEGMENT_COST)
+                    cand_artifacts[policy] = (rr, sched_r, co_r)
+            sweep_cand = None
+            if sweep is not False:
+                scfg0 = scfg if scfg is not None else SweepConfig()
+                q = contraction_factor(target, upper=upper)
+                tol = (scfg0.residual_tol if scfg0.residual_tol is not None
+                       else default_residual_tol(target.dtype))
+                k_plan = planned_sweeps(q, target_levels.num_levels, tol,
+                                        scfg0.k)
+                if k_plan is not None:
+                    row_off = target.row_nnz() - 1
+                    sweep_cand = SweepCandidate(
+                        k=k_plan,
+                        ell_k=max(int(row_off.max()) if row_off.size else 0,
+                                  1),
+                        n=target.n, contraction=q)
+            blocked_cand = None
+            if supernodes is not False and _supernodes().mean_block_size >= 1.5:
+                blocked_cand = blocked_candidate(_block_schedule())
+            plan = plan_strategy(
+                analysis, _schedule(),
+                _coarsened(plan_ccfg) if plan_ccfg is not None else None,
+                unroll_threshold=unroll_threshold, device=device,
+                rewritten=cands or None, sweep=sweep_cand,
+                blocked=blocked_cand,
+                precision=guard.precision if guard is not None else "native")
+            strategy = plan.strategy
+            if strategy == "sweep":
+                scfg = dataclasses.replace(
+                    scfg if scfg is not None else SweepConfig(),
+                    k=plan.sweep_k)
+            if plan.rewrite is not None:
+                # adopt the winning rewrite: already built for pricing
+                rres, sched_r, co_r = cand_artifacts[plan.rewrite]
+                target, target_levels = rres.L, rres.levels
+                memo.clear()
+                memo["base"] = sched_r
+                if co_r is not None:
+                    memo["coarse"] = co_r
+            if ccfg is not None and strategy in ("levelset", "levelset_unroll"):
+                # an explicit coarsen config is a directive: record it
+                plan = dataclasses.replace(plan, coarsen=True)
+            elif plan.coarsen:
+                ccfg = plan_ccfg
+
+        rhs_fn = e_values = e_repack = None
+        if rres is not None:
+            rhs_fn, e_values, e_repack = make_packed_rhs_transform(
+                rres, device=device)
+
+        def _maybe_coarsen(sched: Schedule) -> Schedule:
+            return _coarsened(ccfg) if ccfg is not None else sched
+
+        def _upload(arrays) -> tuple:
+            return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                         for a in arrays)
+
+        schedule = block_schedule = sweep_stats = sweep_exec = None
+        if strategy == "serial":
+            fn, values, repack = make_packed_serial_solver(
+                target, upper=upper, device=device)
+            packed_stats = PackedStats(
+                permutation_applied=False,
+                value_bytes=sum(int(v.nbytes) for v in values),
+                index_bytes=0, padded_value_bytes=0, n_pad=system.n,
+                num_segments=1)
+        elif strategy in ("levelset", "levelset_unroll"):
+            schedule = _maybe_coarsen(_schedule())
             playout = build_packed_layout(schedule)
-            fn = make_packed_levelset_solver(playout, device=device)
-            values = (torch.from_numpy(playout.vals_flat).to(device),
-                      torch.from_numpy(playout.diag_flat).to(device))
+            fn = make_packed_levelset_solver(
+                playout, device=device,
+                unroll_threshold=(unroll_threshold
+                                  if strategy == "levelset_unroll" else 0))
+            values = _upload((playout.vals_flat, playout.diag_flat))
             repack = lambda data, _pl=playout: pack_values(_pl, data)  # noqa: E731
             packed_stats = playout.stats()
         elif strategy == "pallas_level":
             from ..kernels.sptrsv_level import ops as level_ops
 
+            schedule = _maybe_coarsen(_schedule())
             fn, values, repack, playout = level_ops.make_packed_solver(
                 schedule, device=device)
             packed_stats = playout.stats()
-        else:  # pallas_fused
+        elif strategy == "pallas_fused":
             from ..kernels.sptrsv_fused import ops as fused_ops
 
+            # one launch walks every wavefront; coarsening would only
+            # re-partition it
+            schedule = _schedule()
             fn, values, repack, flay = fused_ops.make_packed_solver(
                 schedule, device=device)
             packed_stats = PackedStats(
@@ -328,6 +513,53 @@ class SpTRSV:
                 n_pad=flay.n_pad,
                 num_segments=1,
             )
+        elif strategy == "blocked":
+            block_schedule = _block_schedule()
+            blay = build_packed_blocked_layout(block_schedule)
+            fn = make_packed_blocked_solver(blay, device=device)
+            values = _upload(pack_blocked_values(blay, target.data))
+            repack = lambda data, _bl=blay: pack_blocked_values(_bl, data)  # noqa: E731
+            packed_stats = blay.stats()
+        else:  # sweep
+            # whole-matrix D + N split, k sweeps, no schedule; the exact
+            # fallback is built on first use and kept in step by refresh
+            slayout = build_sweep_layout(target, upper=upper)
+            cur_target = [target]
+            fb_holder: dict = {}
+
+            def _fallback():
+                if "s" not in fb_holder:
+                    fb_holder["s"] = SpTRSV._build_system(
+                        cur_target[0], target_levels, upper=upper,
+                        strategy=scfg.fallback, rewrite=None, guard=None,
+                        sweep=None, supernodes=None,
+                        unroll_threshold=unroll_threshold,
+                        bucket_pad_ratio=bucket_pad_ratio, coarsen=coarsen,
+                        device=device, source=cur_target[0], values_map=None)
+                return fb_holder["s"].solve
+
+            fn, sweep_stats, sweep_exec = make_sweep_solver(
+                slayout, scfg,
+                fallback=_fallback if scfg.fallback is not None else None,
+                device=device)
+            values = _upload((slayout.ell.vals, slayout.diag))
+
+            def repack(target_data, _sl=slayout, _t=target):
+                cur_target[0] = CSRMatrix(
+                    _t.indptr, _t.indices,
+                    np.asarray(target_data).astype(_t.dtype, copy=False),
+                    _t.shape)
+                if "s" in fb_holder:
+                    fb_holder["s"].refresh(cur_target[0].data)
+                return pack_sweep_values(_sl, target_data)
+
+            packed_stats = ell_packed_stats(slayout.ell, slayout.diag,
+                                            n=system.n)
+
+        if guard is not None and guard.precision == "mixed":
+            # bf16 off-diagonal and f32 diagonal storage; the executors cast
+            # to the RHS dtype per solve, and refresh's copy_ casts into them
+            values = cast_value_buffers(values)
 
         def rebuild(data: np.ndarray) -> "SpTRSV":
             sys_data = data[values_map] if values_map is not None else data
@@ -340,7 +572,7 @@ class SpTRSV:
                     data.astype(source.dtype, copy=False), source.shape),
                 values_map=values_map, **build_kwargs)
 
-        return SpTRSV(
+        solver = SpTRSV(
             n=system.n, strategy=strategy, analysis=analysis,
             schedule=schedule, device=device, _solve_fn=fn, _values=values,
             _refresh_ctx=_RefreshCtx(
@@ -351,7 +583,28 @@ class SpTRSV:
             block_schedule=block_schedule,
             supernodes=(block_schedule.supernodes
                         if block_schedule is not None else None),
-            rewrite_result=rres, _rhs_fn=rhs_fn, _e_values=e_values)
+            rewrite_result=rres, plan=plan, sweep_stats=sweep_stats,
+            _rhs_fn=rhs_fn, _e_values=e_values, _sweep_exec=sweep_exec)
+        if guard is not None:
+            # verified against the ORIGINAL (pre-rewrite) system, with the
+            # exact fallback built on that system; the inner solve reads the
+            # live value buffers, so refresh keeps the guard coherent
+            def _guard_fallback(data, _sys=system, _lv=levels):
+                sys2 = CSRMatrix(_sys.indptr, _sys.indices,
+                                 np.asarray(data).astype(_sys.dtype, copy=False),
+                                 _sys.shape)
+                return SpTRSV._build_system(
+                    sys2, _lv, upper=upper, strategy=guard.fallback,
+                    rewrite=None, guard=None, sweep=None, supernodes=None,
+                    coarsen=None, unroll_threshold=unroll_threshold,
+                    bucket_pad_ratio=bucket_pad_ratio, device=device,
+                    source=sys2, values_map=None).solve
+
+            solver.guard = SolveGuard(
+                system, upper=upper, config=guard,
+                inner_solve=solver._solve_raw,
+                fallback_builder=_guard_fallback, device=device)
+        return solver
 
     @property
     def dtype(self) -> np.dtype:
@@ -367,7 +620,9 @@ class SpTRSV:
     def solve(self, b: torch.Tensor) -> torch.Tensor:
         """Solve ``L x = b`` (or ``Lᵀ x = b``).  ``b`` is a floating tensor
         on the solver's device, ``(n,)`` or ``(n, m)``; the matrix values
-        are cast to ``b``'s dtype for the solve."""
+        are cast to ``b``'s dtype for the solve.  A guarded solver verifies
+        the result against the original system, refines it and applies its
+        breakdown policy (:meth:`repro_torch.core.guard.SolveGuard.solve`)."""
         if not torch.is_tensor(b):
             raise TypeError(f"b must be a torch tensor, got {type(b).__name__}")
         if b.dim() not in (1, 2) or b.shape[0] != self.n:
@@ -378,6 +633,13 @@ class SpTRSV:
         if not b.is_floating_point():
             raise ValueError(f"b must be floating point, got {b.dtype}")
         b = b.contiguous()
+        if self.guard is not None:
+            return self.guard.solve(b)
+        return self._solve_raw(b)
+
+    def _solve_raw(self, b: torch.Tensor) -> torch.Tensor:
+        """The unguarded pipeline (RHS transform + executor) on the live
+        value buffers — what the guard wraps and refines."""
         if self._rhs_fn is not None:
             b = self._rhs_fn(b, self._e_values)
         return self._solve_fn(b, self._values)
@@ -399,11 +661,15 @@ class SpTRSV:
         (:func:`repro_torch.core.rewrite.replay_rewrite_values`) for new
         ``L'``/``E`` values in the cached patterns.  The packed value arrays
         are re-packed (gathers; ``blocked`` re-inverts its dense blocks on
-        the host) and copied into the existing device tensors.  A plan that
-        does not transfer to the new values (a zero pivot, or fill outside
-        the cached pattern) falls back to a cold rebuild, whose buffers are
-        new.  ``validate`` (default on) raises ``ValueError`` on non-finite
-        values or zero pivots.  Returns ``self``."""
+        the host) and copied into the existing device tensors (a mixed
+        precision solver's bf16/f32 buffers cast them).  A ``sweep``
+        solver's lazily built fallback and a guard's residual buffers are
+        refreshed with them.  A plan that does not transfer to the new
+        values (a zero pivot, or fill outside the cached pattern) falls back
+        to a cold rebuild, whose buffers are new.  ``validate`` (default on)
+        raises ``ValueError`` on non-finite values or zero pivots; pass
+        ``validate=False`` to let a guarded solver's breakdown policy handle
+        them.  Returns ``self``."""
         ctx = self._refresh_ctx
         if isinstance(new_values, CSRMatrix):
             src = ctx.source
@@ -421,12 +687,14 @@ class SpTRSV:
                 f"new values must have shape {ctx.source.data.shape} "
                 f"(one per stored nonzero); got {data.shape}")
         if validate:
-            nonfinite, zero_piv = _scan_values(data, ctx.source.indptr[1:] - 1)
+            nonfinite, zero_piv = scan_values(data, ctx.source.indptr[1:] - 1)
             if nonfinite or zero_piv:
                 raise ValueError(
                     f"refresh: new values contain {nonfinite} non-finite "
                     f"entry(ies) and {zero_piv} zero/non-finite diagonal "
-                    f"pivot(s); pass validate=False to accept them anyway")
+                    f"pivot(s); pass validate=False to accept them anyway "
+                    f"(a guarded solver then applies its breakdown policy "
+                    f"at solve time)")
         sys_data = (data[ctx.values_map] if ctx.values_map is not None
                     else data).astype(ctx.system.dtype, copy=False)
         target_data = sys_data
@@ -452,15 +720,18 @@ class SpTRSV:
         self._refresh_ctx = dataclasses.replace(
             ctx, source=CSRMatrix(ctx.source.indptr, ctx.source.indices,
                                   data, ctx.source.shape))
+        if self.guard is not None:
+            self.guard.refresh(sys_data)
         return self
 
     def stats(self) -> dict:
         """Execution-layout and schedule statistics — the JAX package's
-        ``stats()`` keys; options not ported report ``None``."""
+        ``stats()`` keys."""
         ps = self.packed_stats
         sn = self.supernodes
         an = self.analysis
         rs = self.rewrite_result.stats if self.rewrite_result else None
+        gs = self.guard.stats if self.guard is not None else None
         return {
             "strategy": self.strategy,
             "layout": self.layout,
@@ -469,7 +740,8 @@ class SpTRSV:
             "n": self.n,
             "nnz": self.analysis.nnz,
             "segments": (self.schedule.num_segments if self.schedule is not None
-                         else self.block_schedule.num_segments),
+                         else self.block_schedule.num_segments
+                         if self.block_schedule is not None else 1),
             "supernode_count": (sn.num_supernodes if sn is not None
                                 else an.supernode_count),
             "mean_block_size": (sn.mean_block_size if sn is not None
@@ -487,14 +759,17 @@ class SpTRSV:
             "rewrite": rs.summary() if rs else None,
             "rewrite_policy": rs.policy if rs else None,
             "critical_path_flops": self.analysis.critical_path_flops,
-            "plan": None,
-            "planned_transform": None,
-            "sweep": None,
-            "planned_sweeps": None,
-            "guard": None,
-            "guard_precision": None,
-            "guard_refine_steps": None,
-            "guard_fallbacks": None,
-            "guard_residual": None,
-            "guard_pivot_alarms": None,
+            "plan": self.plan.reason if self.plan else None,
+            "planned_transform": (
+                {"rewrite": self.plan.rewrite, "coarsen": self.plan.coarsen}
+                if self.plan else None),
+            "sweep": (self.sweep_stats.report()
+                      if self.sweep_stats is not None else None),
+            "planned_sweeps": self.plan.sweep_k if self.plan else None,
+            "guard": gs.report() if gs else None,
+            "guard_precision": gs.precision if gs else None,
+            "guard_refine_steps": gs.refine_steps_total if gs else None,
+            "guard_fallbacks": gs.fallback_solves if gs else None,
+            "guard_residual": gs.last_residual_ratio if gs else None,
+            "guard_pivot_alarms": gs.pivot_alarms if gs else None,
         }

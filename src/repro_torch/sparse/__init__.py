@@ -1,5 +1,7 @@
-"""Synthetic sparse lower-triangular matrices (the JAX package's generators,
-copied)."""
+"""Synthetic sparse lower-triangular matrices, pathological patterns and
+value faults (the JAX package's generators, copied)."""
+from .faults import (FAULT_KINDS, VALUE_FAULTS, diag_positions, inject_values,
+                     wrong_pattern)
 from .generate import (
     banded_lower,
     chain_matrix,
@@ -9,6 +11,10 @@ from .generate import (
     random_lower,
     refresh_values,
 )
+from .pathological import PATHOLOGICAL_PATTERNS, diag_condition, pathological
 
 __all__ = ["banded_lower", "chain_matrix", "ic0_factor", "lung2_like",
-           "poisson2d", "random_lower", "refresh_values"]
+           "poisson2d", "random_lower", "refresh_values",
+           "FAULT_KINDS", "VALUE_FAULTS", "diag_positions", "inject_values",
+           "wrong_pattern", "PATHOLOGICAL_PATTERNS", "diag_condition",
+           "pathological"]

@@ -694,3 +694,132 @@ def test_lm_prefill_on_card_matches_cpu(card):
             assert flash_cuda.launches["flash_attn"] - before == cfg.num_layers
         out[dev.type] = torch.cat([t.float().cpu() for t in steps], 1)
     assert _rel(out["cuda"], out["cpu"]) <= 1e-3
+
+
+# --------------------------------------------------------------------------
+# the rest of the solver's surface on the card
+# --------------------------------------------------------------------------
+SURFACE = {
+    "serial": dict(strategy="serial"),
+    "levelset_unroll": dict(strategy="levelset_unroll"),
+    "levelset_unroll+coarsen": dict(strategy="levelset_unroll", coarsen=True),
+    "auto": dict(strategy="auto"),
+    "sweep": dict(strategy="sweep"),
+    "sweep k=1": dict(strategy="sweep", sweep=dict(k=1)),
+    "guard": dict(strategy="pallas_fused", guard=True),
+    "guard mixed level": dict(strategy="pallas_level",
+                              guard=dict(precision="mixed", refine_steps=4)),
+    "guard mixed fused": dict(strategy="pallas_fused",
+                              guard=dict(precision="mixed", refine_steps=4)),
+}
+
+
+def _surface_options(kw):
+    from repro_torch.core import GuardConfig, SweepConfig
+    kw = dict(kw)
+    if isinstance(kw.get("sweep"), dict):
+        kw["sweep"] = SweepConfig(**kw["sweep"])
+    if isinstance(kw.get("guard"), dict):
+        kw["guard"] = GuardConfig(**kw["guard"])
+    return kw
+
+
+@pytest.mark.parametrize("name", sorted(SURFACE))
+def test_surface_strategy_on_card_matches_levelset(card, name):
+    """Every strategy and option this slice added, on the card, against the
+    plain levelset executor on the card (both directions, one RHS and a
+    batch); the sweep's and the guard's SpMV launches are counted."""
+    L = lung2_like(scale=0.02, fat_levels=4)
+    B = torch.from_numpy(np.random.default_rng(5).standard_normal((L.n, 4))).to(card)
+    spmv_cuda.reset_launches()
+    for s, ref in zip(SpTRSV.build_pair(L, device=card,
+                                        **_surface_options(SURFACE[name])),
+                      SpTRSV.build_pair(L, device=card, strategy="levelset")):
+        for rhs in (B[:, 0].contiguous(), B):
+            assert _rel(s.solve(rhs), ref.solve(rhs)) <= 1e-12
+    if name.startswith(("sweep", "guard")):
+        assert spmv_cuda.launches["spmv_ell"] > 0
+        assert spmv_cuda.launches["spmv_ell_batched"] > 0
+
+
+def test_residual_terms_on_card_match_cpu(card):
+    from repro_torch.core.codegen import device_ell
+    from repro_torch.core.sweep import build_sweep_layout, residual_terms
+    L = lung2_like(scale=0.02, fat_levels=4)
+    lay = build_sweep_layout(L)
+    rng = np.random.default_rng(6)
+    b = rng.standard_normal((L.n, 3))
+    x = rng.standard_normal((L.n, 3))
+    x[5, 2] = np.nan
+    out = {}
+    for dev in (torch.device("cpu"), card):
+        ell = device_ell(lay.ell, L.n, dev)
+        r, ratio = residual_terms(torch.from_numpy(b).to(dev),
+                                  torch.from_numpy(x).to(dev), ell.vals,
+                                  torch.from_numpy(lay.diag).to(dev), ell)
+        out[dev.type] = (r.cpu(), ratio.cpu())
+    assert torch.isinf(out["cuda"][1][2])
+    assert _rel(out["cuda"][1][:2], out["cpu"][1][:2]) <= 1e-12
+    assert _rel(out["cuda"][0][:, :2], out["cpu"][0][:, :2]) <= 1e-12
+
+
+@pytest.mark.parametrize("kw", [dict(strategy="pallas_fused"),
+                                dict(strategy="pallas_level"),
+                                dict(sweeps=8)], ids=["fused", "level", "sweeps"])
+def test_pcg_on_card_matches_cpu(card, kw):
+    from repro_torch.core import (make_ic_preconditioner, pcg, pcg_batched)
+    from repro_torch.sparse import ic0_factor, poisson2d
+    A = poisson2d(24, 24)
+    Lf = ic0_factor(A)
+    B = np.random.default_rng(7).standard_normal((A.n, 3))
+    res = {}
+    for dev in (torch.device("cpu"), card):
+        M = make_ic_preconditioner(Lf, rewrite=None, device=dev, **kw)
+        one = pcg(A, torch.from_numpy(B[:, 0]).to(dev), M, tol=1e-10)
+        many = pcg_batched(A, torch.from_numpy(B).to(dev), M, tol=1e-10)
+        res[dev.type] = (one.iters, many.iters.tolist(), one.x.cpu(), many.x.cpu())
+    assert res["cuda"][:2] == res["cpu"][:2]
+    assert _rel(res["cuda"][2], res["cpu"][2]) <= 1e-10
+    assert _rel(res["cuda"][3], res["cpu"][3]) <= 1e-10
+
+
+def test_guard_fault_policies_on_card(card):
+    from repro_torch.core import GuardBreakdownError, GuardConfig
+    from repro_torch.sparse import inject_values
+    L = lung2_like(scale=0.02, fat_levels=4)
+    b = torch.from_numpy(np.random.default_rng(8).standard_normal(L.n)).to(card)
+    bad = inject_values(L, "zero_pivot")
+    for policy in ("refine", "fallback", "raise"):
+        s = SpTRSV.build(L, strategy="pallas_fused", device=card,
+                         guard=GuardConfig(on_breakdown=policy))
+        if policy == "raise":
+            with pytest.raises(GuardBreakdownError):
+                s.refresh(bad, validate=False)
+            continue
+        s.refresh(bad, validate=False)
+        x = s.solve(b)
+        st = s.guard.stats
+        assert st.pivot_alarms == 1 and st.breakdown_columns == 1
+        if policy == "fallback":
+            assert st.fallback_solves == 1 and bool(torch.isfinite(x).all())
+
+
+@pytest.mark.parametrize("strategy", ["pallas_fused", "pallas_level"])
+def test_mixed_guard_refresh_keeps_tables_and_buffers(card, strategy):
+    """A mixed-precision guarded pair refreshed in place: the bf16 / f32
+    buffers keep their addresses, the kernels' tables (built from the
+    pattern) stay valid, and the refreshed solve matches levelset."""
+    from repro_torch.core import GuardConfig
+    L = lung2_like(scale=0.02, fat_levels=4)
+    new = refresh_values(L, seed=3)
+    b = torch.from_numpy(np.random.default_rng(9).standard_normal((L.n, 3))).to(card)
+    cfg = GuardConfig(precision="mixed", refine_steps=4)
+    for s, ref in zip(SpTRSV.build_pair(L, strategy=strategy, device=card, guard=cfg),
+                      SpTRSV.build_pair(L, strategy="levelset", device=card)):
+        ptrs = [v.data_ptr() for v in s._values]
+        s.refresh(new)
+        ref.refresh(new)
+        assert [v.data_ptr() for v in s._values] == ptrs
+        assert [v.dtype for v in s._values] == [torch.bfloat16, torch.float32]
+        assert _rel(s.solve(b), ref.solve(b)) <= 1e-12
+        assert s.guard.stats.verified == 1

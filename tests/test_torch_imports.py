@@ -20,7 +20,9 @@ CHECK = (
     "repro_torch.kernels.flash_attn.ops, repro_torch.models, "
     "repro_torch.models.convert, repro_torch.configs, "
     "repro_torch.configs.granite_3_8b, repro_torch.serve, "
-    "repro_torch.launch.serve, sys; "
+    "repro_torch.launch.serve, repro_torch.core.pcg, repro_torch.core.guard, "
+    "repro_torch.core.sweep, repro_torch.core.calibrate, "
+    "repro_torch.bench.calibrate, sys; "
     "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
     "or m.startswith(('jax.', 'repro.'))]; "
     "assert not bad, bad"

@@ -191,12 +191,15 @@ def test_refresh_rejects_other_patterns():
 
 
 UNPORTED = {
+    "distributed": dict(strategy="distributed"),
+    "mesh=": dict(mesh="data"), "scatter": dict(layout="scatter"),
+}
+# options that raised until the port had them: they build and solve now
+PORTED = {
     "serial": dict(strategy="serial"),
     "levelset_unroll": dict(strategy="levelset_unroll"),
     "auto": dict(strategy="auto"), "sweep": dict(strategy="sweep"),
-    "distributed": dict(strategy="distributed"),
-    "guard=": dict(guard=True), "sweep=": dict(sweep=True),
-    "mesh=": dict(mesh="data"), "scatter": dict(layout="scatter"),
+    "guard=": dict(guard=True), "sweep=": dict(strategy="sweep", sweep=True),
 }
 
 
@@ -208,6 +211,20 @@ def test_unported_options_raise(name):
         SpTRSV.build(L, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         SpTRSV.build_pair(L, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("name", sorted(PORTED))
+def test_ported_options_build_and_solve(name):
+    L = to_port(jax_matrix("chain"))
+    b = torch.ones(L.n, dtype=torch.float64)
+    want = np.linalg.solve(L.to_dense(), b.numpy())
+    s = SpTRSV.build(L, device="cpu", **PORTED[name])
+    np.testing.assert_allclose(s.solve(b).numpy(), want, **TOL[np.float64])
+    fwd, bwd = SpTRSV.build_pair(L, device="cpu", **PORTED[name])
+    np.testing.assert_allclose(fwd.solve(b).numpy(), want, **TOL[np.float64])
+    np.testing.assert_allclose(bwd.solve(b).numpy(),
+                               np.linalg.solve(L.to_dense().T, b.numpy()),
+                               **TOL[np.float64])
 
 
 def test_unknown_options_raise():

@@ -188,3 +188,36 @@ def test_fused_layout_matches(name, transpose, coarsen):
 def test_build_ell_matches(name):
     Lj = jax_matrix(name)
     assert_same(t_codegen.build_ell(to_port(Lj)), j_codegen.build_ell(Lj))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("kind", sorted(jsparse.PATHOLOGICAL_PATTERNS))
+def test_pathological_patterns_match(kind, dtype):
+    """The pathological generators, and every symbolic artifact built on
+    them (levels, analysis, schedules coarsened or not, packed layouts),
+    both directions."""
+    a = jsparse.pathological(kind, n=96, seed=4, dtype=dtype)
+    b = tsparse.pathological(kind, n=96, seed=4, dtype=dtype)
+    assert_same(b, a)
+    assert tsparse.diag_condition(b) == jsparse.diag_condition(a)
+    assert sorted(tsparse.PATHOLOGICAL_PATTERNS) == \
+        sorted(jsparse.PATHOLOGICAL_PATTERNS)
+    for transpose in (False, True):
+        if transpose:
+            sj, st = a.transpose(), b.transpose()
+            lj, lt = (j_levels.build_reverse_level_sets(a),
+                      t_levels.build_reverse_level_sets(b))
+        else:
+            sj, st = a, b
+            lj, lt = j_levels.build_level_sets(a), t_levels.build_level_sets(b)
+        assert_same(lt, lj)
+        assert t_analysis.analyze(st, lt, upper=transpose).report() == \
+            j_analysis.analyze(sj, lj, upper=transpose).report()
+        sched_j = j_codegen.build_schedule(sj, lj, upper=transpose)
+        sched_t = t_codegen.build_schedule(st, lt, upper=transpose)
+        assert_same(sched_t, sched_j)
+        co_j = j_coarsen.coarsen_schedule(sched_j, j_coarsen.CoarsenConfig())
+        co_t = t_coarsen.coarsen_schedule(sched_t, t_coarsen.CoarsenConfig())
+        assert_same(co_t, co_j)
+        assert_same(t_packed.build_packed_layout(co_t),
+                    j_packed.build_packed_layout(co_j))
