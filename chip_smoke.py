@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Build and drive the PyTorch/CUDA port of SpTRSV (``src/repro_torch``) on
-one NVIDIA GPU: the level-scheduled and fused solves and the equation
-rewriting at the size of the paper's lung2 (``lung2_like(scale=1.0)``:
+one NVIDIA GPU: the level-scheduled and fused solves, the equation
+rewriting, the serving tier and the paper's experiments at the size of the
+paper's lung2 (``lung2_like(scale=1.0)``:
 110,258 rows, 493 levels), the blocked solve on a dense band of the
 same row count (``banded_lower(110592, bandwidth=24, fill=1.0)``, the JAX
 blocked benchmark's band) and on a band whose panels are too wide to
@@ -73,6 +74,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
       within 2 of a host PCG (scipy's ``spsolve_triangular``, or the same
       sweeps); then the ``"cuda"`` calibration row re-measured
       (``repro_torch.bench.calibrate``) beside the committed one;
+   f. the serving tier: ``SolveService(strategy="auto")`` on lung2 (f64)
+      registered with its planned build held, one forward and one
+      transpose request answered cold through the serial pair, the build
+      released and promoted (bounded wait, no build error), then the same
+      requests, steps of 32 and of 1 each way (a width-1 step is one
+      single-RHS launch and no batched one, a step of 32 one batched
+      launch), ``refresh`` and again; every answer against scipy's
+      ``spsolve_triangular`` to 1e-12, cold against promoted to 1e-10; a
+      NaN request in a guarded batch of 8 fails alone; then the port's
+      ``serve_bench`` at its full size (every request answered, none
+      failed, an eviction, the byte budget held, 20 answers against scipy
+      to 1e-10) and the paper's experiments (``fig6_levels``,
+      ``exp1_codegen``, ``exp2_rewrite``) on the full lung2 with the JAX
+      benches' assertions, each writing its shared-schema JSON to
+      ``bench_out/BENCH_*_cuda.json``;
 4. CUDA-event times per solve and per kernel (median and range of three
    batches; a solve slower than the batch budget is timed once), beside
    each kernel's bound, its plain version and a library call, and the
@@ -174,6 +190,12 @@ TRANSPOSE_FUSED_MAX_S = 5.0
 # batch width, and how far the card's iteration count may be from the host's
 PCG_GRID, PCG_TOL, PCG_MAXITER = 332, 1e-8, 2000
 PCG_SWEEPS, PCG_M, PCG_ITER_SLACK = 8, 32, 2
+# phase 3f: the serving tier on lung2 (f64): every answer against scipy's
+# spsolve_triangular, relative; cold against promoted answers (the JAX
+# serve_bench's check); the batch width; a bound on every wait for a
+# background build; the mixed traffic's answers checked on a sample
+SERVE_TOL, SERVE_COLD_TOL, SERVE_BATCH = 1e-12, 1e-10, 32
+SERVE_WAIT_S, SERVE_SAMPLE, SERVE_MIXED_TOL = 900, 20, 1e-10
 # prefill logits, card (bf16 weights and activations, the kernel) against
 # the CPU (f32, the plain versions) through two full-width layers: bf16
 # rounding, at the JAX package's bf16 attention tolerance
@@ -607,9 +629,10 @@ def solver_surface(torch, dev, rng, L, levelset, scipy_csr, counts) -> dict:
 
     from repro_torch.core import (GuardBreakdownError, GuardConfig,
                                   RewriteConfig, SpTRSV, SweepConfig,
-                                  contraction_factor, make_ic_preconditioner,
-                                  make_ic_preconditioner_batched, pcg,
-                                  pcg_batched, planned_sweeps)
+                                  contraction_factor, planned_sweeps)
+    from repro_torch.core.pcg import (make_ic_preconditioner,
+                                      make_ic_preconditioner_batched, pcg,
+                                      pcg_batched)
     from repro_torch.core.levels import build_level_sets
     from repro_torch.core.sweep import default_residual_tol
     from repro_torch.sparse import ic0_factor, inject_values, poisson2d
@@ -850,6 +873,256 @@ def solver_surface(torch, dev, rng, L, levelset, scipy_csr, counts) -> dict:
     pcg_runs(P, Lic)
     gc.collect()
     return auto_times
+
+
+def serving_tier(torch, dev, L, scipy_csr, reset_counts, counts) -> dict:
+    """Phase 3f: (a) ``SolveService(strategy="auto")`` on lung2 in f64 —
+    cold answers through the serial pair while the planned build is held,
+    promotion, width-1 and width-SERVE_BATCH steps each way, a refresh, and
+    a NaN request in a guarded batch of 8; (b) the port's ``serve_bench``
+    at its full size; (c) ``fig6_levels``, ``exp1_codegen`` and
+    ``exp2_rewrite`` on the full lung2.  Counters are read only while no
+    build runs.  Returns the launches of (a)-(b) and of (c)."""
+    import gc
+    import threading
+
+    from scipy.sparse.linalg import spsolve_triangular
+
+    from repro_torch.bench import exp1_codegen, exp2_rewrite, fig6_levels
+    from repro_torch.bench import serve_bench
+    from repro_torch.core import CSRMatrix, GuardBreakdownError, GuardConfig
+    from repro_torch.serve import SolveService
+    from repro_torch.sparse import refresh_values
+
+    out_dir = ROOT / "bench_out"
+    out_dir.mkdir(exist_ok=True)
+    rng = np.random.default_rng(21)
+    total = {}
+
+    def counted(fn):
+        """``fn()`` with the counters zeroed before and read after; the
+        launches add to the phase's."""
+        reset_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        c = counts()
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+        return res, c
+
+    def rel(x, want):
+        return float(np.abs(x - want).max() / np.abs(want).max())
+
+    def oracle(A, b, transpose):
+        return spsolve_triangular(A[transpose], b, lower=not transpose)
+
+    # -- (a) the serving tier on lung2 ---------------------------------------
+    A = scipy_csr(L)
+    gate = threading.Event()
+    svc = SolveService(strategy="auto", build_gate=gate, device=dev)
+    t0 = time.perf_counter()
+    key = svc.register("lung2", L)
+    t_admit = time.perf_counter() - t0
+    entry = svc.registry.lookup(key)
+    check(entry.state == "cold" and entry.engine.solver.strategy == "serial",
+          f"serving: admission gave {entry.state} {entry.engine.solver.strategy}")
+    print(f"phase 3f: registered lung2 f64: cold serial pair built in "
+          f"{entry.cold_build_seconds:.3f} s (admission {t_admit:.3f} s), "
+          f"{entry.packed_bytes} packed bytes; the planned build is held")
+
+    def serve(B, transpose, want_A):
+        """Submit the columns of ``B``, drain one step; check every answer
+        against scipy; returns (answers (n, m), launches, seconds)."""
+        def go():
+            reqs = [svc.submit("lung2", B[:, j], transpose=transpose)
+                    for j in range(B.shape[1])]
+            t = time.perf_counter()
+            done = svc.step()
+            return reqs, done, time.perf_counter() - t
+        (reqs, done, took), c = counted(go)
+        check(done == B.shape[1] and all(r.done and r.error is None for r in reqs),
+              f"serving: {done} of {B.shape[1]} answered, errors "
+              f"{[repr(r.error) for r in reqs if r.error is not None]}")
+        X = np.stack([r.x for r in reqs], axis=1)
+        err = rel(X, oracle(want_A, B, transpose))
+        check(err <= SERVE_TOL, f"serving m={B.shape[1]} T={transpose}: vs "
+              f"scipy {err:.3e}")
+        return X, c, took, err
+
+    b1 = {tr: rng.standard_normal((L.n, 1)) for tr in (False, True)}
+    cold = {}
+    for tr in (False, True):
+        cold[tr], c, took, err = serve(b1[tr], tr, A)
+        check(entry.state == "cold", "serving: promoted while the gate was held")
+        print(f"phase 3f: cold answer transpose={int(tr)} through the serial "
+              f"pair: {took:.3f} s, vs scipy {err:.2e}; launches "
+              f"{json.dumps({k: v for k, v in c.items() if v})}")
+    gate.set()
+    t0 = time.perf_counter()
+    ready = entry.wait_ready(timeout=SERVE_WAIT_S)
+    idle = svc.registry.wait_idle(timeout=SERVE_WAIT_S)
+    check(ready and idle, f"serving: the planned build did not end within "
+          f"{SERVE_WAIT_S} s")
+    check(entry.state == "ready" and entry.build_error is None,
+          f"serving: state {entry.state}, build error {entry.build_error!r}")
+    eng = entry.engine
+    picks = {}
+    for s in (eng.solver, eng.solver_t):
+        p = s.plan
+        picks[int(s.transpose)] = (p.strategy + (f"+rewrite:{p.rewrite}" if p.rewrite
+                                                 else "") + ("+coarsen" if p.coarsen else ""))
+    print(f"phase 3f: planned auto pair promoted after "
+          f"{entry.planned_build_seconds:.3f} s of build (waited "
+          f"{time.perf_counter() - t0:.1f} s): forward {picks[0]}, transpose "
+          f"{picks[1]}; packed bytes forward "
+          f"{eng.solver.stats()['packed_bytes']}, transpose "
+          f"{eng.solver_t.stats()['packed_bytes']}, entry {entry.packed_bytes} "
+          f"(registry resident {svc.registry.resident_bytes()}); host memory "
+          f"{host_rss_gb():.1f} GB resident")
+
+    def check_kinds(solver, m, c):
+        """a width-1 step is one single-RHS walk, a wider one one batch"""
+        want = (1, 0) if m == 1 else (0, 1)
+        check((c["sptrsv_fused"], c["sptrsv_fused_batched"]) == want,
+              f"serving: a width-{m} step of {solver.strategy} launched "
+              f"{json.dumps({k: v for k, v in c.items() if v})}")
+
+    for tr in (False, True):
+        solver = eng.solver_t if tr else eng.solver
+        x, c, took, err = serve(b1[tr], tr, A)
+        agree = rel(x, cold[tr])
+        check(agree <= SERVE_COLD_TOL, f"serving T={tr}: promoted vs cold {agree:.3e}")
+        check_kinds(solver, 1, c)
+        print(f"phase 3f: promoted answer transpose={int(tr)}: {took * 1e3:.4f} "
+              f"ms, vs cold {agree:.2e}, vs scipy {err:.2e}; launches "
+              f"{json.dumps({k: v for k, v in c.items() if v})}")
+        for m, reps in ((SERVE_BATCH, 3 if not tr else 2), (1, 5)):
+            ts = []
+            for _ in range(reps):
+                _, c, took, err = serve(rng.standard_normal((L.n, m)), tr, A)
+                check_kinds(solver, m, c)
+                ts.append(took * 1e3)
+            print(f"phase 3f: step of width {m:2d} transpose={int(tr)} "
+                  f"({solver.strategy}): {sorted(ts)[len(ts) // 2]:.4f} ms "
+                  f"[{min(ts):.4f}-{max(ts):.4f}] over {reps} steps, vs scipy "
+                  f"<= {err:.2e}; launches per step "
+                  f"{json.dumps({k: v for k, v in c.items() if v})}")
+
+    def step_only(B, transpose):
+        for j in range(B.shape[1]):
+            svc.submit("lung2", B[:, j], transpose=transpose)
+        svc.step()
+
+    for m in (1, SERVE_BATCH):
+        B = rng.standard_normal((L.n, m))
+        print(f"phase 3f: profile a forward step of width {m}: "
+              f"{device_busy(torch, lambda: step_only(B, False))}")
+    new = refresh_values(L, seed=11)
+    t0 = time.perf_counter()
+    svc.refresh("lung2", new)
+    torch.cuda.synchronize()
+    t_refresh = time.perf_counter() - t0
+    A2 = scipy_csr(L, new)
+    print(f"phase 3f: refresh of the promoted pair {t_refresh:.3f} s, beside "
+          f"the cold admission {t_admit:.3f} s and the planned build "
+          f"{entry.planned_build_seconds:.3f} s")
+    for tr in (False, True):
+        for m in (1, SERVE_BATCH):
+            _, c, took, err = serve(rng.standard_normal((L.n, m)), tr, A2)
+            check_kinds(eng.solver_t if tr else eng.solver, m, c)
+            print(f"phase 3f: refreshed m={m:2d} transpose={int(tr)}: "
+                  f"{took * 1e3:.4f} ms, vs scipy {err:.2e}")
+    st = svc.stats()
+    print(f"phase 3f: service stats: completed {st['completed']}, failed "
+          f"{st['failed']}, batches {st['batches_completed']}, solve latency "
+          f"{json.dumps(st['solve_latency'])}; registry "
+          f"{json.dumps({k: st['registry'][k] for k in ('hits', 'misses', 'promotions', 'evictions', 'build_failures')})}; "
+          f"host memory {host_rss_gb():.1f} GB resident")
+    check(st["failed"] == 0 and st["queue_depth"] == 0, f"serving: {st['per_tenant']}")
+    del svc, entry, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a NaN request in a guarded batch of 8 fails alone
+    L2 = CSRMatrix(L.indptr, L.indices, new, L.shape)
+    gsvc = SolveService(strategy="auto", transpose_too=False, background=False,
+                        device=dev, guard=GuardConfig(on_breakdown="raise"))
+    gsvc.register("guarded", L2)
+    B = rng.standard_normal((L.n, 8))
+    B[L.n // 2, 3] = np.nan
+    reqs = [gsvc.submit("guarded", B[:, j]) for j in range(8)]
+    (done, c) = counted(gsvc.step)
+    want = oracle(A2, B[:, [0, 1, 2, 4, 5, 6, 7]], False)
+    good = [r for j, r in enumerate(reqs) if j != 3]
+    err = rel(np.stack([r.x for r in good], axis=1), want) if all(
+        r.x is not None for r in good) else float("inf")
+    gst = gsvc.stats()
+    check(done == 8 and isinstance(reqs[3].error, GuardBreakdownError)
+          and reqs[3].x is None and err <= SERVE_TOL
+          and (gst["completed"], gst["failed"]) == (7, 1),
+          f"serving guard: done {done}, NaN request {reqs[3].error!r}, good "
+          f"vs scipy {err:.3e}, stats {gst['per_tenant']}")
+    print(f"phase 3f: guarded batch of 8 ({gsvc.registry.lookup(gsvc.registry.keys()[0]).engine.solver.strategy}) "
+          f"with one NaN request: it failed alone ({type(reqs[3].error).__name__}), "
+          f"7 answered, vs scipy {err:.2e}; launches "
+          f"{json.dumps({k: v for k, v in c.items() if v})}")
+    del gsvc, reqs, good
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (b) serve_bench at its full size -----------------------------------
+    t0 = time.perf_counter()
+    res, c = counted(lambda: serve_bench.run(
+        device=dev, json_path=str(out_dir / "BENCH_serve_cuda.json")))
+    mixed = res["mixed"]
+    reqs = mixed["requests"]
+    check(mixed["completed"] == mixed["solves"] == len(reqs) > 0
+          and mixed["queue_depth"] == 0 and mixed["idle"]
+          and all(r.done for r, _ in reqs),
+          f"serve_bench: {mixed['completed']} of {mixed['solves']} completed")
+    check(mixed["failed"] == 0, f"serve_bench: {mixed['failed']} failed")
+    check(mixed["evictions"] >= 1, "serve_bench: no eviction")
+    check(mixed["peak_resident_bytes"] <= mixed["budget_bytes"],
+          f"serve_bench: peak {mixed['peak_resident_bytes']} > budget "
+          f"{mixed['budget_bytes']}")
+    cold_ok = res["cold"]
+    check(cold_ok["served_while_cold"] and cold_ok["promoted"]
+          and cold_ok["answers_match"], f"serve_bench cold path: {cold_ok}")
+    worst = 0.0
+    for r, F in reqs[::max(1, len(reqs) // SERVE_SAMPLE)][:SERVE_SAMPLE]:
+        worst = max(worst, rel(r.x, oracle(scipy_csr(F), r.b, r.transpose)))
+    check(worst <= SERVE_MIXED_TOL, f"serve_bench: answers vs scipy {worst:.3e}")
+    print(f"phase 3f: serve_bench (lung2_like(0.3) n={res['rows']}, 4 patterns, "
+          f"8 tenants, 600 events, n=512) in {time.perf_counter() - t0:.1f} s: "
+          f"warm {json.dumps(res['warm'])}; cold {json.dumps(cold_ok)}; mixed "
+          f"{json.dumps({k: v for k, v in mixed.items() if k != 'requests'})}; "
+          f"{SERVE_SAMPLE} answers vs scipy <= {worst:.2e}; launches "
+          f"{json.dumps({k: v for k, v in c.items() if v})}")
+    del res, mixed, reqs
+    gc.collect()
+    serving_launches = dict(total)
+
+    # -- (c) the paper's experiments on the full lung2 -----------------------
+    total.clear()
+    t0 = time.perf_counter()
+    fig6 = fig6_levels.run(full_scale=True, json_path=str(out_dir / "BENCH_fig6_cuda.json"))
+    print(f"phase 3f: fig6_levels in {time.perf_counter() - t0:.1f} s: "
+          f"{fig6['lung2_like'].summary()}")
+    t0 = time.perf_counter()
+    exp1, c = counted(lambda: exp1_codegen.run(
+        full_scale=True, device=dev, json_path=str(out_dir / "BENCH_exp1_cuda.json")))
+    print(f"phase 3f: exp1_codegen in {time.perf_counter() - t0:.1f} s: ms "
+          f"{json.dumps({k: round(v * 1e3, 4) for k, v in exp1.items()})}; "
+          f"launches {json.dumps({k: v for k, v in c.items() if v})}")
+    t0 = time.perf_counter()
+    exp2, c = counted(lambda: exp2_rewrite.run(
+        full_scale=True, device=dev, json_path=str(out_dir / "BENCH_exp2_cuda.json")))
+    print(f"phase 3f: exp2_rewrite in {time.perf_counter() - t0:.1f} s: ms "
+          f"{json.dumps({k: round(v * 1e3, 4) for k, v in exp2.items() if k != 'stats'})}; "
+          f"{exp2['stats'].summary()}; launches "
+          f"{json.dumps({k: v for k, v in c.items() if v})}")
+    gc.collect()
+    return {"serving": serving_launches, "experiments": dict(total)}
 
 
 def main() -> int:
@@ -1468,6 +1741,22 @@ def main() -> int:
           f"{json.dumps({k: round(v, 6) for k, v in raw.items()})}")
     print(f"phase 3e: calibration measured  {row!r}")
     print(f"phase 3e: calibration committed {DEFAULT_CALIBRATIONS['cuda']!r}")
+
+    # 3f: the serving tier and the paper's experiments
+    t0 = time.perf_counter()
+    tier = serving_tier(torch, dev, L64, scipy_csr, reset_counts, counts)
+    path_launches["serving"] = tier["serving"]
+    path_launches["experiments"] = tier["experiments"]
+    print(f"phase 3f: serving tier and experiments in "
+          f"{time.perf_counter() - t0:.1f} s; launches serving "
+          f"{json.dumps(tier['serving'])}, experiments "
+          f"{json.dumps(tier['experiments'])}")
+    for name in ("sptrsv_fused", "sptrsv_fused_batched"):
+        check(tier["serving"].get(name, 0) > 0,
+              f"{name} never launched on the serving path")
+    for name in ("sptrsv_level", "sptrsv_fused", "spmv_ell"):
+        check(tier["experiments"].get(name, 0) > 0,
+              f"{name} never launched by the experiments")
     main_launches = {name: sum(p[name] for p in path_launches.values())
                      for name in KERNELS}
     for name in KERNELS:

@@ -1,5 +1,7 @@
 """Host-side analysis, schedules and packed layouts, the ``SpTRSV`` solver
-of the port, its planner, sweep and guard layers, and PCG."""
+of the port, its planner, sweep and guard layers.  PCG lives in
+:mod:`repro_torch.core.pcg` and is imported from there, as the JAX
+package's is."""
 from .analysis import MatrixAnalysis, analyze
 from .calibrate import (BackendCalibration, DEFAULT_CALIBRATIONS,
                         get_calibration, load_calibrations, save_calibrations)
@@ -57,8 +59,6 @@ from .guard import (GuardBreakdownError, GuardConfig, GuardStats, SolveGuard,
 from .solver import LAYOUTS, STRATEGIES, SpTRSV
 from .sweep import (SweepConfig, SweepStats, contraction_factor,
                     planned_sweeps)
-from .pcg import (BatchedPCGResult, PCGResult, make_ic_preconditioner,
-                  make_ic_preconditioner_batched, pcg, pcg_batched)
 
 __all__ = [
     "MatrixAnalysis", "analyze",
@@ -83,6 +83,4 @@ __all__ = [
     "repair_pivots", "scan_values",
     "LAYOUTS", "STRATEGIES", "SpTRSV",
     "SweepConfig", "SweepStats", "contraction_factor", "planned_sweeps",
-    "BatchedPCGResult", "PCGResult", "make_ic_preconditioner",
-    "make_ic_preconditioner_batched", "pcg", "pcg_batched",
 ]

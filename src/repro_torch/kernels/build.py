@@ -10,7 +10,10 @@ Libraries land in ``build/repro_torch_kernels/`` at the repository root,
 named by a digest of the source, the shared headers (``csrc/*.cuh``) and
 the flags, so an edited source or header rebuilds and an unchanged one is
 reused.  :func:`build_all` starts one ``nvcc`` per
-source at once and waits for all of them.  The compiler's ``-Xptxas=-v``
+source at once and waits for all of them.  Both it and :func:`load` hold
+one process-wide lock, so threads that ask for a library at once (a
+background solver build beside the serving thread) build it once, and
+each compiler writes to a temporary name of its own process and thread.  The compiler's ``-Xptxas=-v``
 report (registers, shared memory, spills) is kept beside each library as
 ``<lib>.log``.
 """
@@ -21,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
@@ -36,6 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -61,7 +66,11 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     """Compile every missing library among ``names`` (default: all sources)
     with one ``nvcc`` process each, all running together.  Raises
     ``RuntimeError`` with the compiler's output if any build fails."""
-    names = list(SOURCES if names is None else names)
+    with _LOCK:
+        return _build_all(list(SOURCES if names is None else names))
+
+
+def _build_all(names) -> Dict[str, Path]:
     paths = {name: library_path(name) for name in names}
     todo = [name for name in names if not paths[name].exists()]
     if todo:
@@ -69,7 +78,8 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs = {}
         for name in todo:
-            tmp = paths[name].with_suffix(f".{os.getpid()}.tmp")
+            tmp = paths[name].with_suffix(
+                f".{os.getpid()}-{threading.get_ident()}.tmp")
             procs[name] = (tmp, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -89,7 +99,8 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel source ``name``, built on first use."""
-    if name not in _LOADED:
-        path = build_all([name])[name]
-        _LOADED[name] = ctypes.CDLL(str(path))
-    return _LOADED[name]
+    with _LOCK:
+        if name not in _LOADED:
+            path = build_all([name])[name]
+            _LOADED[name] = ctypes.CDLL(str(path))
+        return _LOADED[name]

@@ -2,7 +2,10 @@
 
 A kernel takes raw pointers, so its wrapper checks everything the kernel
 assumes — device, dtype, rank, contiguity — and raises ``ValueError`` on
-anything it does not take, before any pointer leaves Python.
+anything it does not take, before any pointer leaves Python.  A launch
+that fails, or a kernel that reports a fault of its own, raises
+:class:`KernelLaunchError`: the card's state is then not to be trusted, so
+callers that isolate a request's failure (the serving engine) re-raise it.
 """
 from __future__ import annotations
 
@@ -10,14 +13,18 @@ import ctypes
 
 import torch
 
-__all__ = ["FLOAT_SUFFIX", "check_tensor", "stream_of", "raise_on_error",
-           "P", "I32", "I64"]
+__all__ = ["FLOAT_SUFFIX", "KernelLaunchError", "check_tensor", "stream_of",
+           "raise_on_error", "P", "I32", "I64"]
 
 FLOAT_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 P = ctypes.c_void_p
 I32 = ctypes.c_int
 I64 = ctypes.c_longlong
+
+
+class KernelLaunchError(RuntimeError):
+    """A CUDA kernel failed to launch or reported a fault while it ran."""
 
 
 def check_tensor(name: str, t: torch.Tensor, *, device: torch.device,
@@ -45,4 +52,4 @@ def stream_of(device: torch.device) -> int:
 
 def raise_on_error(kernel: str, rc: int) -> None:
     if rc != 0:
-        raise RuntimeError(f"{kernel}: CUDA launch failed with error {rc}")
+        raise KernelLaunchError(f"{kernel}: CUDA launch failed with error {rc}")

@@ -18,8 +18,8 @@ from typing import Optional
 import torch
 
 from .. import build
-from ..cuda_common import (FLOAT_SUFFIX, I32, I64, P, check_tensor,
-                           raise_on_error, stream_of)
+from ..cuda_common import (FLOAT_SUFFIX, I32, I64, P, KernelLaunchError,
+                           check_tensor, raise_on_error, stream_of)
 from .table import FusedTable
 
 __all__ = ["fused_solve", "walk_grid", "batched_grid", "launches",
@@ -27,7 +27,7 @@ __all__ = ["fused_solve", "walk_grid", "batched_grid", "launches",
 
 launches = {"sptrsv_fused": 0, "sptrsv_fused_batched": 0}
 # Read the walk's error word back after each launch: a wait that ran out
-# then raises RuntimeError and the launch is not counted.  The read is a
+# then raises KernelLaunchError and the launch is not counted.  The read is a
 # device-to-host copy that waits for the launch, so the host cannot queue
 # the next solve meanwhile; off (the default), a wait that runs out leaves
 # the pending NaN in x̂ and raises nothing.  The card tests and
@@ -105,7 +105,7 @@ def _walk(bl_perm, cols, vals, diag, table: FusedTable) -> torch.Tensor:
                          stream_of(dev))
     raise_on_error("sptrsv_fused", rc)
     if check_waits and int(scratch[1]):
-        raise RuntimeError(
+        raise KernelLaunchError(
             "sptrsv_fused: a wait ran out (a row waited on a position that "
             "no earlier group writes: the table does not match the layout)")
     launches["sptrsv_fused"] += 1
@@ -119,7 +119,7 @@ def fused_solve(bl_perm: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
     ``bl_perm``.  ``cols`` int32 and ``vals`` ``(K, n_pad)``, ``diag``
     ``(n_pad,)``.  A single RHS ``(n_pad,)`` walks ``table`` (built by
     :func:`~.table.fused_table` from the same layout); under
-    :data:`check_waits` a wait that ran out raises ``RuntimeError`` and is
+    :data:`check_waits` a wait that ran out raises ``KernelLaunchError`` and is
     not counted.  A batch
     ``(n_pad, m)`` walks ``spans``, int32 ``(S, 2)`` rows ``(off, r_pad)``
     that tile ``[0, n_pad)`` in order; the caller guarantees every column

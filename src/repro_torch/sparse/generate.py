@@ -22,6 +22,7 @@ __all__ = [
     "poisson2d",
     "ic0_factor",
     "refresh_values",
+    "serve_traffic",
 ]
 
 
@@ -148,6 +149,82 @@ def refresh_values(L: CSRMatrix, seed: int = 0, scale: float = 0.3) -> np.ndarra
     diag = L.indptr[1:] - 1
     data[diag] = np.abs(data[diag]) + 1.0
     return data
+
+
+def serve_traffic(
+    *,
+    num_patterns: int = 3,
+    num_tenants: int = 4,
+    num_events: int = 200,
+    refresh_fraction: float = 0.15,
+    rotate_fraction: float = 0.05,
+    transpose_fraction: float = 0.25,
+    n: int = 96,
+    avg_offdiag: float = 3.0,
+    seed: int = 0,
+    dtype=np.float64,
+):
+    """Mixed cold/warm multi-tenant workload for the solve service.
+
+    Generates ``num_patterns`` distinct sparsity patterns (same size,
+    different structure — so the registry key genuinely distinguishes
+    them) and a deterministic event stream over ``num_tenants`` tenants:
+
+    * ``{"op": "register", "tenant", "pattern", "matrix"}`` — tenant binds
+      to a factor (first touch of a pattern is a registry *miss* → cold
+      path; later touches are *hits*).  Rotation events re-register a
+      tenant onto another pattern, which is what churns the LRU.
+    * ``{"op": "solve", "tenant", "b", "transpose"}`` — one RHS vector.
+    * ``{"op": "refresh", "tenant", "values"}`` — same-pattern numeric
+      refresh (:func:`refresh_values` payload), the warm path.
+
+    Returns ``(patterns, events)``; every tenant's first event is its
+    initial ``register``.  The stream is reproducible from ``seed`` — the
+    serve benchmark and the service tests share it.
+    """
+    if num_patterns < 1 or num_tenants < 1:
+        raise ValueError(
+            f"need >= 1 pattern and tenant; got {num_patterns} pattern(s), "
+            f"{num_tenants} tenant(s)")
+    rng = np.random.default_rng(seed)
+    patterns = [
+        random_lower(n, avg_offdiag=avg_offdiag, seed=seed + 101 * p,
+                     dtype=dtype)
+        for p in range(num_patterns)
+    ]
+    events = []
+    bound = {}
+    values_seed = seed + 7_000
+
+    def register(t: int, p: int):
+        nonlocal values_seed
+        values_seed += 1
+        m = patterns[p]
+        mat = CSRMatrix(m.indptr, m.indices,
+                        refresh_values(m, seed=values_seed), m.shape)
+        bound[t] = p
+        events.append({"op": "register", "tenant": f"tenant-{t}",
+                       "pattern": p, "matrix": mat})
+
+    for t in range(num_tenants):
+        register(t, t % num_patterns)
+    for _ in range(num_events):
+        t = int(rng.integers(num_tenants))
+        u = rng.random()
+        if u < rotate_fraction and num_patterns > 1:
+            p = int(rng.integers(num_patterns - 1))
+            register(t, p if p < bound[t] else p + 1)  # a different pattern
+        elif u < rotate_fraction + refresh_fraction:
+            values_seed += 1
+            m = patterns[bound[t]]
+            events.append({"op": "refresh", "tenant": f"tenant-{t}",
+                           "values": refresh_values(m, seed=values_seed)})
+        else:
+            b = rng.normal(size=n).astype(dtype, copy=False)
+            events.append({"op": "solve", "tenant": f"tenant-{t}", "b": b,
+                           "transpose": bool(rng.random()
+                                             < transpose_fraction)})
+    return patterns, events
 
 
 def poisson2d(nx: int, ny: int, dtype=np.float64) -> CSRMatrix:

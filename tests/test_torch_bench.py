@@ -1,0 +1,141 @@
+"""The port's benchmark helpers and benches on the CPU: ``to_records`` and
+``write_bench_json`` give the JAX package's shared schema
+(``benchmarks/common.py``) record for record, and small runs of
+``fig6_levels`` / ``exp1_codegen`` / ``exp2_rewrite`` (``full_scale=False``)
+and ``serve_bench`` (``smoke=True``) produce their records, with the
+references' assertions inside them."""
+import importlib.util
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.bench import common, exp1_codegen, exp2_rewrite, fig6_levels
+from repro_torch.bench import serve_bench
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _reference_common():
+    """``benchmarks/common.py`` loaded from its file (the directory is not
+    a package)."""
+    spec = importlib.util.spec_from_file_location(
+        "_reference_bench_common", ROOT / "benchmarks" / "common.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+RESULTS = {"rows": 12, "nnz": np.int64(40),
+           "warm": {"speedup": np.float32(3.5), "ok": True, "note": "x",
+                    "none": None, "arr": np.zeros(3)},
+           "deep": {"a": {"b": 1.25}}, "sched": [1, 2]}
+
+
+def test_to_records_matches_reference():
+    ref = _reference_common()
+    assert common.BENCH_SCHEMA == ref.BENCH_SCHEMA
+    got = common.to_records("serve", RESULTS, backend="cuda", n=12, nnz=40)
+    want = ref.to_records("serve", RESULTS, backend="cuda", n=12, nnz=40)
+    assert got == want
+    assert {r["metric"] for r in got} == {"rows", "nnz", "speedup", "ok",
+                                          "note", "none", "b"}
+    assert common.to_records("p", {"x": 1})[0]["backend"] == (
+        "cuda" if torch.cuda.is_available() else "cpu")
+
+
+def test_write_bench_json_matches_reference(tmp_path):
+    ref = _reference_common()
+    common.write_bench_json(str(tmp_path / "a.json"), "exp1", RESULTS,
+                            backend="cpu", n=3, nnz=4)
+    ref.write_bench_json(str(tmp_path / "b.json"), "exp1", RESULTS,
+                         backend="cpu", n=3, nnz=4)
+    assert (tmp_path / "a.json").read_text() == (tmp_path / "b.json").read_text()
+
+
+def test_timeit_and_emit(tmp_path):
+    calls = []
+    t = common.timeit(lambda x: calls.append(x), torch.zeros(2), iters=4,
+                      warmup=3)
+    assert t >= 0 and len(calls) == 1 + 1 + 2 + 4
+    slow = []
+
+    def long_call():
+        slow.append(1)
+        import time
+        time.sleep(common.LONG_CALL_S)
+
+    assert common.timeit(long_call, iters=5, warmup=3) >= common.LONG_CALL_S
+    assert len(slow) == 2              # one warm-up, one timed call
+    common.ROWS.clear()
+    common.emit("x.y", 3, "ms", role="r")
+    common.flush_csv(str(tmp_path / "rows.csv"))
+    assert (tmp_path / "rows.csv").read_text().splitlines()[0] == \
+        "name,role,unit,value"
+
+
+def _records(path):
+    payload = json.loads(Path(path).read_text())
+    assert payload["schema"] == list(common.BENCH_SCHEMA)
+    assert all(set(r) == set(common.BENCH_SCHEMA) for r in payload["records"])
+    return {(r["name"], r["metric"]): r for r in payload["records"]}
+
+
+def test_fig6_levels_small(tmp_path):
+    res = fig6_levels.run(full_scale=False, json_path=str(tmp_path / "f.json"))
+    st = res["lung2_like"]
+    assert st.levels_before > 400 and st.level_reduction > 0.80
+    recs = _records(tmp_path / "f.json")
+    assert recs["fig6.lung2_like", "levels_after"]["value"] == st.levels_after
+    assert recs["fig6.chain_4096", "levels_before"]["value"] == 4096
+
+
+def test_exp1_codegen_small(tmp_path):
+    res = exp1_codegen.run(full_scale=False, json_path=str(tmp_path / "e.json"),
+                           device="cpu")
+    assert set(res) == {"serial", "levelset", "unroll", "pallas_level",
+                        "pallas_level_coarsen", "pallas_fused"}
+    recs = _records(tmp_path / "e.json")
+    assert all(r["backend"] == "cpu" for r in recs.values())
+    assert recs["exp1.seconds", "serial"]["value"] == res["serial"] > 0
+    assert recs["exp1.rel_err_vs_levelset", "pallas_fused"]["value"] <= \
+        exp1_codegen.AGREE_TOL
+
+
+def test_exp2_rewrite_small(tmp_path):
+    res = exp2_rewrite.run(full_scale=False, json_path=str(tmp_path / "e.json"),
+                           device="cpu")
+    st = res["stats"]
+    assert st.levels_after < st.levels_before
+    for key in ("base", "rewritten", "bucketed", "pallas_level",
+                "pallas_level_rewritten", "pallas_fused",
+                "pallas_fused_rewritten"):
+        assert res[key] > 0
+    recs = _records(tmp_path / "e.json")
+    assert recs["exp2", "levels_after"]["value"] == st.levels_after
+
+
+def test_serve_bench_smoke(tmp_path):
+    res = serve_bench.run(smoke=True, json_path=str(tmp_path / "s.json"),
+                          device="cpu")
+    mixed = res["mixed"]
+    assert mixed["failed"] == 0 and mixed["evictions"] >= 1
+    assert mixed["completed"] == mixed["solves"] == len(mixed["requests"])
+    assert mixed["peak_resident_bytes"] <= mixed["budget_bytes"]
+    # a sample of answers against a dense solve of the factor in effect
+    for req, L in mixed["requests"][::10]:
+        A = L.to_dense()
+        np.testing.assert_allclose(
+            req.x, np.linalg.solve(A.T if req.transpose else A, req.b),
+            rtol=1e-10, atol=1e-12)
+    recs = _records(tmp_path / "s.json")
+    assert recs["serve.mixed", "failed"]["value"] == 0
+    assert all(r["backend"] == "cpu" for r in recs.values())
+    assert ("serve.mixed", "requests") not in recs
+
+
+def test_serve_bench_requires_a_known_device():
+    with pytest.raises(ValueError):
+        serve_bench.run(smoke=True, device="tpu")

@@ -767,7 +767,7 @@ def test_residual_terms_on_card_match_cpu(card):
                                 dict(strategy="pallas_level"),
                                 dict(sweeps=8)], ids=["fused", "level", "sweeps"])
 def test_pcg_on_card_matches_cpu(card, kw):
-    from repro_torch.core import (make_ic_preconditioner, pcg, pcg_batched)
+    from repro_torch.core.pcg import make_ic_preconditioner, pcg, pcg_batched
     from repro_torch.sparse import ic0_factor, poisson2d
     A = poisson2d(24, 24)
     Lf = ic0_factor(A)
@@ -823,3 +823,90 @@ def test_mixed_guard_refresh_keeps_tables_and_buffers(card, strategy):
         assert [v.dtype for v in s._values] == [torch.bfloat16, torch.float32]
         assert _rel(s.solve(b), ref.solve(b)) <= 1e-12
         assert s.guard.stats.verified == 1
+
+
+@pytest.mark.parametrize("transpose", [False, True], ids=["forward", "transpose"])
+def test_engine_bucket_launch_counts(card, transpose):
+    """A width-1 step of a ``pallas_fused`` engine is one single-RHS walk
+    and no batched launch; a width-4 step one batched launch.  A
+    ``pallas_level`` engine's width-1 step runs the single-RHS level
+    kernel only."""
+    from repro_torch.serve import SolveEngine
+    L = lung2_like(scale=0.02, fat_levels=4)
+    rng = np.random.default_rng(10)
+    fused = SolveEngine.from_matrix(L, strategy="pallas_fused", device=card,
+                                    max_batch=8)
+    level = SolveEngine.from_matrix(L, strategy="pallas_level", device=card,
+                                    max_batch=8)
+    ref = SpTRSV.build(L, strategy="levelset", transpose=transpose, device="cpu")
+    for width, want in ((1, {"sptrsv_fused": 1, "sptrsv_fused_batched": 0}),
+                        (4, {"sptrsv_fused": 0, "sptrsv_fused_batched": 1})):
+        reqs = [fused.submit(rng.standard_normal(L.n), transpose=transpose)
+                for _ in range(width)]
+        fused_cuda.reset_launches()
+        assert fused.step() == width
+        assert dict(fused_cuda.launches) == want
+        for r in reqs:
+            x = ref.solve(torch.from_numpy(r.b)).numpy()
+            assert np.abs(r.x - x).max() / np.abs(x).max() <= 1e-12
+    level.submit(rng.standard_normal(L.n), transpose=transpose)
+    level_cuda.reset_launches()
+    assert level.step() == 1
+    assert level_cuda.launches["sptrsv_level"] > 0
+    assert level_cuda.launches["sptrsv_level_batched"] == 0
+
+
+def test_service_on_card_matches_cpu(card):
+    """The same ``serve_traffic`` stream through a ``SolveService`` on the
+    card and on the CPU (``background=False``, ``pallas_fused``): equal
+    counters, answers to 1e-12."""
+    from repro_torch.serve import SolveService
+    from repro_torch.sparse import serve_traffic
+    _, events = serve_traffic(num_patterns=3, num_tenants=4, num_events=60,
+                              n=200, seed=7)
+    out = {}
+    for dev in (torch.device("cpu"), card):
+        svc = SolveService(strategy="pallas_fused", background=False,
+                           max_entries=2, max_batch=8, device=dev)
+        reqs = []
+        for ev in events:
+            if ev["op"] == "register":
+                svc.register(ev["tenant"], ev["matrix"])
+            elif ev["op"] == "refresh":
+                svc.refresh(ev["tenant"], ev["values"])
+            else:
+                reqs.append(svc.submit(ev["tenant"], ev["b"],
+                                       transpose=ev["transpose"]))
+            svc.step()
+        svc.run()
+        st = svc.stats()
+        out[dev.type] = (reqs, {k: st[k] for k in ("completed", "failed",
+                                                   "batches_completed")},
+                         {k: st["registry"][k] for k in
+                          ("hits", "misses", "promotions", "evictions")})
+    assert out["cuda"][1:] == out["cpu"][1:]
+    assert out["cuda"][1]["failed"] == 0
+    for a, b in zip(out["cuda"][0], out["cpu"][0]):
+        assert np.abs(a.x - b.x).max() / np.abs(b.x).max() <= 1e-12
+
+
+def test_registry_background_build_promotes_on_card(card):
+    """A background ``auto`` build promotes on the card; its answers equal
+    the cold serial pair's."""
+    import threading
+    from repro_torch.serve import SolverRegistry
+    L = lung2_like(scale=0.02, fat_levels=4)
+    gate = threading.Event()
+    reg = SolverRegistry(strategy="auto", device=card, build_gate=gate)
+    entry = reg.get(L)
+    b = np.random.default_rng(11).standard_normal(L.n)
+    cold = entry.engine.submit(b, transpose=True)
+    entry.engine.run()
+    assert entry.state == "cold"
+    gate.set()
+    assert entry.wait_ready(timeout=120) and entry.build_error is None
+    warm = entry.engine.submit(b, transpose=True)
+    entry.engine.run()
+    assert entry.state == "ready"
+    assert np.abs(warm.x - cold.x).max() / np.abs(cold.x).max() <= 1e-10
+    assert reg.wait_idle(timeout=120)

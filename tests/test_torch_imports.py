@@ -22,7 +22,14 @@ CHECK = (
     "repro_torch.configs.granite_3_8b, repro_torch.serve, "
     "repro_torch.launch.serve, repro_torch.core.pcg, repro_torch.core.guard, "
     "repro_torch.core.sweep, repro_torch.core.calibrate, "
-    "repro_torch.bench.calibrate, sys; "
+    "repro_torch.bench.calibrate, repro_torch.serve.engine, "
+    "repro_torch.serve.registry, repro_torch.serve.service, "
+    "repro_torch.serve.metrics, repro_torch.bench.common, "
+    "repro_torch.bench.serve_bench, repro_torch.bench.fig6_levels, "
+    "repro_torch.bench.exp1_codegen, repro_torch.bench.exp2_rewrite, sys; "
+    "from repro_torch.serve import (ServeEngine, Request, SolveEngine, "
+    "SolveRequest, SolverRegistry, SolverEntry, pattern_key, SolveService, "
+    "TenantState, LatencyHistogram); "
     "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
     "or m.startswith(('jax.', 'repro.'))]; "
     "assert not bad, bad"

@@ -12,7 +12,7 @@ import repro.sparse as jsparse
 from repro.compat import enable_x64
 from repro.core import GuardConfig as JaxGuardConfig
 
-from repro_torch import core as t_pcg  # exports the pcg module's names
+import repro_torch.core.pcg as t_pcg
 from repro_torch.core import GuardConfig
 
 from _torch_parity import carry, to_port
@@ -138,3 +138,20 @@ def test_pcg_batched_matches_jax(name):
     assert one.iters == got.iters[0]
     with pytest.raises(ValueError):
         t_pcg.pcg_batched(to_port(A), torch.from_numpy(B[:, 0]), M)
+
+
+def test_pcg_module_binds_like_the_reference():
+    """``import repro_torch.core.pcg as m`` binds the module, as ``import
+    repro.core.pcg`` does: ``repro_torch.core`` exports no PCG name."""
+    import types
+
+    import repro.core as j_core
+    import repro_torch.core as t_core
+
+    assert isinstance(t_pcg, types.ModuleType)
+    assert isinstance(j_pcg, types.ModuleType)
+    for name in ("make_ic_preconditioner", "make_ic_preconditioner_batched",
+                 "pcg", "pcg_batched", "PCGResult", "BatchedPCGResult"):
+        assert hasattr(t_pcg, name) and hasattr(j_pcg, name)
+        assert (name in t_core.__all__) == (name in getattr(j_core, "__all__", ()))
+        assert name not in t_core.__all__
