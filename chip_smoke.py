@@ -18,9 +18,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ``src/repro_torch/kernels/csrc`` with nvcc, one process per source;
    count the tensor-core (``HMMA``) instructions in the flash library's
    SASS, which must not be 0;
-2. hold each of the eleven kernel entry points against its plain torch
+2. hold each of the thirteen kernel entry points against its plain torch
    version on the same CUDA tensors at the paths' shapes (f32/f64, m in
-   {1, 32}; the level walk over lung2's whole coarsened table in both
+   {1, 32}; the scatter layout's level step over lung2's whole forward and
+   transpose schedules, one launch per wavefront; the level walk over
+   lung2's whole coarsened table in both
    directions, one launch per segment: chains on one block or cluster,
    the transpose's wide rows on up to 32 warps each, and a small lung2 transpose
    whose chains are wide; the single-RHS fused walk on lung2's whole
@@ -59,8 +61,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
       full-width layers on the card (bf16, the kernel) against the same
       weights on the CPU (f32, the plain versions);
    e. the rest of the solver's surface on lung2 (f64): ``serial`` (one
-      solve each way) and ``levelset_unroll`` (m in {1, 32}) against
-      ``levelset``; ``auto`` on the committed ``"cuda"`` calibration row,
+      solve each way, on ``lung2_like(0.3)`` against scipy: phase 3f's
+      ``exp1_codegen`` times it on the full lung2) and
+      ``levelset_unroll`` (m in {1, 32}) against ``levelset``; ``auto`` on
+      the committed ``"cuda"`` calibration row,
       the rewrite left open and given (its plan, modelled costs and
       backward error; phase 4 times it beside the fastest strategy);
       ``sweep`` with the sweep count ``planned_sweeps`` certifies on the
@@ -89,6 +93,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
       ``exp1_codegen``, ``exp2_rewrite``) on the full lung2 with the JAX
       benches' assertions, each writing its shared-schema JSON to
       ``bench_out/BENCH_*_cuda.json``;
+   g. the scatter layout (``layout="scatter"``) on lung2 (f64): every
+      strategy plain, coarsened and rewritten, m in {1, 32}, both
+      directions, held against the permuted ``levelset`` (and against its
+      permuted twin where a/b hold one) with one scatter level launch per
+      wavefront; ``serial`` on ``lung2_like(0.3)`` (not its transpose
+      batch) and ``blocked`` on the band against scipy (one panel SpMV and
+      one block apply launch per
+      super-level); a scatter ``refresh`` (a cold rebuild) against a fresh
+      build; scatter beside permuted ms per solve; then the eight CI
+      benches (``refresh``, ``batch_solve``, ``coarsen``, ``blocked``,
+      ``sweep``, ``guard``, ``preconditioner``, ``rewrite_planner``) at
+      their smoke sizes: answer and structural gates held, planner and
+      speed gates printed as met or not, each writing
+      ``bench_out/BENCH_<name>_cuda.json``, and phase 3e's calibration row
+      as ``BENCH_calibrate_cuda.json``;
 4. CUDA-event times per solve and per kernel (median and range of three
    batches; a solve slower than the batch budget is timed once), beside
    each kernel's bound, its plain version and a library call, and the
@@ -104,8 +123,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    share of a blocked solve, of the coarsened ``pallas_level`` solve and of
    a ``pallas_fused`` solve each way; for the LM, prefill ms per request, decode ms
    per step beside its weight-read bound, and the device's busy share of a
-   decode step.  The per-segment block apply is off the paths since the
-   walk took its place; it is checked and timed as before.
+   decode step; the scatter level step on lung2's widest wavefront, and
+   the block applies of one scatter blocked band solve beside
+   ``torch.bmm``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
@@ -196,6 +216,26 @@ PCG_SWEEPS, PCG_M, PCG_ITER_SLACK = 8, 32, 2
 # background build; the mixed traffic's answers checked on a sample
 SERVE_TOL, SERVE_COLD_TOL, SERVE_BATCH = 1e-12, 1e-10, 32
 SERVE_WAIT_S, SERVE_SAMPLE, SERVE_MIXED_TOL = 900, 20, 1e-10
+# phase 3g: the scatter layout on lung2 (f64), each case (tag, options,
+# the permuted twin phase 3 holds: (group, tag) or None); serial on a
+# smaller lung2 (a solve of the full one takes 6-7 s); the batch budget of
+# the scatter-beside-permuted times
+SCATTER_CASES = (
+    [(t, dict(strategy=t), tw) for t, tw in (
+        ("levelset", "levelset"), ("levelset_unroll", None),
+        ("pallas_level", "pallas_level"), ("pallas_fused", "pallas_fused"),
+        ("sweep", None), ("blocked", None), ("auto", None))]
+    + [(f"{t}+coarsen", dict(strategy=t, coarsen=True), tw) for t, tw in (
+        ("levelset", None), ("levelset_unroll", None),
+        ("pallas_level", "pallas_level+coarsen"))]
+    + [(f"rewrite:{t}", dict(strategy=t, rewrite=True), tw) for t, tw in (
+        ("levelset", "levelset"), ("levelset_unroll", None),
+        ("pallas_level", "pallas_level"), ("pallas_fused", "pallas_fused"),
+        ("sweep", None), ("blocked", None), ("auto", None))])
+SCATTER_TIMED = ("levelset", "pallas_level", "pallas_level+coarsen",
+                 "pallas_fused")
+SCATTER_SERIAL_SCALE = 0.3
+SCATTER_BUDGET_MS = 50.0
 # prefill logits, card (bf16 weights and activations, the kernel) against
 # the CPU (f32, the plain versions) through two full-width layers: bf16
 # rounding, at the JAX package's bf16 attention tolerance
@@ -208,6 +248,10 @@ KERNELS = {
                      "src/repro/kernels/sptrsv_level/lowering_tpu.py:72"),
     "sptrsv_level_batched": ("src/repro_torch/kernels/csrc/sptrsv_level.cu",
                              "src/repro/kernels/sptrsv_level/lowering_tpu.py:110"),
+    "sptrsv_level_scatter": ("src/repro_torch/kernels/csrc/sptrsv_level.cu",
+                             "src/repro/kernels/sptrsv_level/lowering_tpu.py:72"),
+    "sptrsv_level_scatter_batched": ("src/repro_torch/kernels/csrc/sptrsv_level.cu",
+                                     "src/repro/kernels/sptrsv_level/lowering_tpu.py:110"),
     "sptrsv_fused": ("src/repro_torch/kernels/csrc/sptrsv_fused.cu",
                      "src/repro/kernels/sptrsv_fused/lowering_tpu.py:76"),
     "sptrsv_fused_batched": ("src/repro_torch/kernels/csrc/sptrsv_fused.cu",
@@ -227,9 +271,10 @@ KERNELS = {
     "flash_attn": ("src/repro_torch/kernels/csrc/flash_attn.cu",
                    "src/repro/kernels/flash_attn/kernel.py:91"),
 }
-# kernels that no path launches any more: held against their plain version
-# and timed, with 0 launches on the paths
-OFF_PATH = ("trsm_block_apply", "trsm_block_apply_batched")
+# kernels that no path launches: held against their plain version and
+# timed, with 0 launches on the paths (none since the scatter layout's
+# blocked solve runs the block apply)
+OFF_PATH = ()
 LEVEL_TAGS = ("pallas_level", "pallas_level+coarsen", "pallas_fused")
 VARIANTS = {"pallas_level": dict(strategy="pallas_level"),
             "pallas_level+coarsen": dict(strategy="pallas_level", coarsen=True),
@@ -375,6 +420,17 @@ def walk_bound_ms(lay, m: int, dtype: str) -> tuple[float, str]:
     panel = lay.cols_flat.size
     return bound_ms(lay.dinv_flat.size * s + panel * (4 + s) + 2 * lay.n * m * s,
                     2 * m * (panel + lay.dinv_flat.size), dtype)
+
+
+def scatter_step_bound_ms(entries: int, rows: int, m: int,
+                          dtype: str) -> tuple[float, str]:
+    """One scatter level step of ``m`` RHS: the step's real entries (int32
+    column + value), its row ids and diagonal, and ``b`` at its rows read
+    once, ``x`` at its rows written once; a multiply-add per entry and a
+    divide per row and column."""
+    s = 8 if dtype == "float64" else 4
+    return bound_ms(entries * (4 + s) + rows * (4 + s) + 2 * rows * m * s,
+                    m * (2 * entries + rows), dtype)
 
 
 def block_apply_bound_ms(shapes, m: int, dtype: str) -> tuple[float, str]:
@@ -613,7 +669,8 @@ def host_pcg(A, b: np.ndarray, M, tol: float, maxiter: int) -> int:
 
 
 def solver_surface(torch, dev, rng, L, levelset, scipy_csr, counts) -> dict:
-    """Phase 3e: ``serial`` and ``levelset_unroll`` on lung2, ``auto`` with
+    """Phase 3e: ``serial`` on ``lung2_like(SCATTER_SERIAL_SCALE)`` and
+    ``levelset_unroll`` on lung2, ``auto`` with
     the rewrite open and given, ``sweep`` (certified on the IC(0) factor,
     falling back on lung2), ``guard`` under injected faults and in mixed
     precision, and PCG on ``poisson2d(PCG_GRID, PCG_GRID)`` with IC(0)
@@ -644,23 +701,31 @@ def solver_surface(torch, dev, rng, L, levelset, scipy_csr, counts) -> dict:
     tol = KERNEL_TOL["float64"]
 
     def serial_and_unroll():
-        """serial (one solve each way) and levelset_unroll against levelset"""
+        """serial (one solve each way, on a smaller lung2 against scipy:
+        exp1_codegen in phase 3f times it on the full one) and
+        levelset_unroll against levelset"""
+        from repro_torch.sparse import lung2_like
+
         t0 = time.perf_counter()
-        serial = SpTRSV.build_pair(L, strategy="serial", device=dev)
+        Ls = lung2_like(scale=SCATTER_SERIAL_SCALE, seed=0)
+        As = scipy_csr(Ls)
+        serial = SpTRSV.build_pair(Ls, strategy="serial", device=dev)
         unroll = SpTRSV.build_pair(L, strategy="levelset_unroll", device=dev)
-        print(f"phase 3e: built serial and levelset_unroll pairs on lung2 in "
-              f"{time.perf_counter() - t0:.1f} s")
+        print(f"phase 3e: built serial (lung2_like({SCATTER_SERIAL_SCALE})) and "
+              f"levelset_unroll (lung2) pairs in {time.perf_counter() - t0:.1f} s")
+        b_s = rng.standard_normal(Ls.n)
         for s in serial:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            x = s.solve(dev_rhs[1])
+            x = s.solve(torch.from_numpy(b_s).to(dev))
             torch.cuda.synchronize()
             took = time.perf_counter() - t0
-            agree = rel_err(x, base[s.transpose, 1])
-            check(agree <= tol, f"serial T={s.transpose}: vs levelset {agree:.3e}")
-            print(f"phase 3e: serial f64 m=1 transpose={int(s.transpose)}: one "
-                  f"solve {took:.3f} s ({took / L.n * 1e6:.2f} us per row), vs "
-                  f"levelset {agree:.2e}")
+            want = spsolve_triangular(As[s.transpose], b_s, lower=not s.transpose)
+            agree = float(np.abs(x.cpu().numpy() - want).max() / np.abs(want).max())
+            check(agree <= tol, f"serial T={s.transpose}: vs scipy {agree:.3e}")
+            print(f"phase 3e: serial f64 m=1 transpose={int(s.transpose)} "
+                  f"lung2_like({SCATTER_SERIAL_SCALE}): one solve {took:.3f} s "
+                  f"({took / Ls.n * 1e6:.2f} us per row), vs scipy {agree:.2e}")
         for s in unroll:
             for m, b in dev_rhs.items():
                 agree = rel_err(s.solve(b), base[s.transpose, m])
@@ -1125,6 +1190,204 @@ def serving_tier(torch, dev, L, scipy_csr, reset_counts, counts) -> dict:
     return {"serving": serving_launches, "experiments": dict(total)}
 
 
+def scatter_phase(torch, dev, rng, L, band, solvers, rw_solvers, scipy_csr,
+                  reset_counts, counts, calibration) -> dict:
+    """Phase 3g: (a) ``layout="scatter"`` for every strategy on lung2 (f64),
+    plain, coarsened and rewritten, forward and transpose, m in WIDTHS:
+    residual, agreement with the permuted ``levelset`` (and with the
+    permuted twin where phase 3 holds one), one scatter level launch per
+    wavefront; ``serial`` on ``lung2_like(SCATTER_SERIAL_SCALE)`` and
+    ``blocked`` on the band against scipy (one panel SpMV and one block
+    apply launch per super-level); a scatter ``refresh`` (a cold rebuild)
+    against a fresh build; scatter beside permuted ms per solve.  (b) the
+    eight CI benches at ``--smoke`` (``--dry-run``) with their gates, and
+    the calibration row of phase 3e as ``BENCH_calibrate_cuda.json``.
+    Returns the launches of (a) and (b), the times, the gates and the
+    scatter solvers phase 4 counts launches of."""
+    import gc
+
+    from scipy.sparse.linalg import spsolve_triangular
+
+    from repro_torch.bench import (batch_solve, blocked, coarsen, guard,
+                                   preconditioner, refresh, rewrite_planner,
+                                   sweep)
+    from repro_torch.bench.calibrate import write_bench
+    from repro_torch.bench.common import print_gates
+    from repro_torch.core import CSRMatrix, RewriteConfig, SpTRSV
+    from repro_torch.kernels.sptrsv_level import cuda as level_cuda
+    from repro_torch.sparse import lung2_like, refresh_values
+
+    out_dir = ROOT / "bench_out"
+    out_dir.mkdir(exist_ok=True)
+    dt, tdt = "float64", torch.float64
+    A = scipy_csr(L)
+    rhs = {m: rng.standard_normal((L.n,) if m == 1 else (L.n, m)) for m in WIDTHS}
+    dev_rhs = {m: torch.from_numpy(b).to(dev) for m, b in rhs.items()}
+    base = {(s.transpose, m): s.solve(b) for s in solvers["levelset", dt]
+            for m, b in dev_rhs.items()}
+    reset_counts()
+    t0 = time.perf_counter()
+    times, keep = {}, {}
+    for tag, kw, twin in SCATTER_CASES:
+        kw = dict(kw)
+        rewritten = kw.pop("rewrite", False)
+        if rewritten:
+            kw["rewrite"] = RewriteConfig()
+        t1 = time.perf_counter()
+        pair = SpTRSV.build_pair(L, device=dev, layout="scatter", **kw)
+        built = time.perf_counter() - t1
+        twins = None
+        if twin is not None:
+            twins = (rw_solvers if rewritten else solvers)[twin, dt]
+        for s in pair:
+            check(s.layout == "scatter" and s._values is None,
+                  f"scatter {tag}: not a scatter solver")
+            loose = rewritten or "sweep" in (kw["strategy"], s.strategy)
+            for m, b in dev_rhs.items():
+                before = dict(level_cuda.launches)
+                x = s.solve(b)
+                torch.cuda.synchronize()
+                xn = x.cpu().numpy()
+                check(x.shape == b.shape and np.isfinite(xn).all(),
+                      f"scatter {tag} m={m} T={s.transpose}: bad output")
+                res = residual(A[s.transpose], xn, rhs[m])
+                agree = rel_err(x, base[s.transpose, m])
+                tol = REWRITE_AGREE_TOL[dt] if loose else KERNEL_TOL[dt]
+                check(res <= RESIDUAL_TOL[dt],
+                      f"scatter {tag} m={m} T={s.transpose}: residual {res:.3e}")
+                check(agree <= tol, f"scatter {tag} m={m} T={s.transpose}: "
+                      f"vs levelset {agree:.3e}")
+                what = f"residual {res:.2e}, vs levelset {agree:.2e}"
+                if twins is not None:
+                    t_agree = rel_err(x, twins[int(s.transpose)].solve(b))
+                    check(t_agree <= KERNEL_TOL[dt], f"scatter {tag} m={m} "
+                          f"T={s.transpose}: vs permuted {t_agree:.3e}")
+                    what += f", vs permuted {t_agree:.2e}"
+                if s.strategy == "pallas_level":
+                    name = "sptrsv_level_scatter" + ("" if m == 1 else "_batched")
+                    got = level_cuda.launches[name] - before[name]
+                    check(got == s.schedule.total_depth == s._solve_fn.table.num_steps,
+                          f"scatter {tag} T={s.transpose} m={m}: {got} launches "
+                          f"for {s.schedule.total_depth} wavefronts")
+                    what += f", {got} {name} launches"
+                print(f"phase 3g: scatter {tag:24s} -> {s.strategy:15s} f64 m={m:2d} "
+                      f"transpose={int(s.transpose)}: {what}")
+                # not the transpose fused batch (B4): ~0.8 s a solve either way
+                if tag in SCATTER_TIMED and not (
+                        tag == "pallas_fused" and s.transpose and m > 1):
+                    ms = time_ms(torch, lambda: s.solve(b), warm=False,
+                                 budget_ms=SCATTER_BUDGET_MS)
+                    tw = twins[int(s.transpose)]
+                    pms = time_ms(torch, lambda: tw.solve(b),
+                                  budget_ms=SCATTER_BUDGET_MS)
+                    times[tag, m, s.transpose] = (ms[0], pms[0])
+                    print(f"phase 3g: time {tag} f64 m={m:2d} transpose="
+                          f"{int(s.transpose)}: scatter {fmt_ms(ms)}, permuted "
+                          f"{fmt_ms(pms)}")
+        print(f"phase 3g: scatter {tag} pair built in {built:.2f} s")
+        if tag == "pallas_level":
+            keep["scatter:pallas_level"] = pair[0]
+        if tag == "pallas_level+coarsen":
+            # refresh: a cold rebuild, equal to a fresh build on the new values
+            s = pair[0]
+            new = refresh_values(L, seed=1)
+            s.refresh(new)
+            fresh = SpTRSV.build(CSRMatrix(L.indptr, L.indices, new, L.shape),
+                                 device=dev, layout="scatter", **kw)
+            b = dev_rhs[WIDTHS[-1]]
+            check(torch.equal(s.solve(b), fresh.solve(b))
+                  and not s.stats()["refreshable_in_place"],
+                  "scatter refresh: answers differ from a fresh build")
+            print("phase 3g: scatter refresh (a cold rebuild) equals a fresh "
+                  "build on the new values")
+            del fresh
+        del pair, twins
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # serial on a smaller lung2, blocked on the band: against scipy
+    Ls = lung2_like(scale=SCATTER_SERIAL_SCALE, seed=0)
+    for what, M, kw in (("serial lung2_like(%g)" % SCATTER_SERIAL_SCALE, Ls,
+                         dict(strategy="serial")),
+                        ("blocked band", band, dict(strategy="blocked"))):
+        AM = scipy_csr(M)
+        t1 = time.perf_counter()
+        pair = SpTRSV.build_pair(M, device=dev, layout="scatter", **kw)
+        built = time.perf_counter() - t1
+        for s in pair:
+            for m in WIDTHS:
+                if kw["strategy"] == "serial" and m > 1 and s.transpose:
+                    continue  # a host loop per row: ~3 s a solve
+                b_np = rng.standard_normal((M.n,) if m == 1 else (M.n, m))
+                before = counts()
+                t1 = time.perf_counter()
+                x = s.solve(torch.from_numpy(b_np).to(dev))
+                torch.cuda.synchronize()
+                took = time.perf_counter() - t1
+                c = {k: v - before[k] for k, v in counts().items() if v - before[k]}
+                xn = x.cpu().numpy()
+                want = spsolve_triangular(AM[s.transpose], b_np, lower=not s.transpose)
+                agree = float(np.abs(xn - want).max() / np.abs(want).max())
+                res = residual(AM[s.transpose], xn, b_np)
+                check(np.isfinite(xn).all() and agree <= BLOCKED_AGREE_TOL[dt]
+                      and res <= RESIDUAL_TOL[dt],
+                      f"scatter {what} m={m} T={s.transpose}: vs scipy {agree:.3e}, "
+                      f"residual {res:.3e}")
+                if kw["strategy"] == "blocked":
+                    segs = s.stats()["segments"]
+                    sfx = "" if m == 1 else "_batched"
+                    check(c == {f"trsm_block_apply{sfx}": segs, f"spmv_ell{sfx}": segs},
+                          f"scatter blocked band m={m}: launches {c}, {segs} segments")
+                print(f"phase 3g: scatter {what} f64 m={m:2d} transpose="
+                      f"{int(s.transpose)}: {took:.3f} s, vs scipy {agree:.2e}, "
+                      f"residual {res:.2e}, launches {json.dumps(c)}")
+        print(f"phase 3g: scatter {what} pair built in {built:.2f} s")
+        if kw["strategy"] == "blocked":
+            keep["scatter:block-apply (band)"] = pair[0]
+        del pair
+        gc.collect()
+    torch.cuda.synchronize()
+    scatter_launches = counts()
+    print(f"phase 3g: scatter path in {time.perf_counter() - t0:.1f} s; "
+          f"launches {json.dumps(scatter_launches)}")
+
+    # (b) the eight CI benches at their smoke sizes
+    reset_counts()
+    t0 = time.perf_counter()
+    gates = {}
+    for name, mod, kw in (("refresh", refresh, dict(smoke=True)),
+                          ("batch_solve", batch_solve, dict(dry_run=True)),
+                          ("coarsen", coarsen, dict(smoke=True)),
+                          ("blocked", blocked, dict(smoke=True)),
+                          ("sweep", sweep, dict(smoke=True)),
+                          ("guard", guard, dict(smoke=True)),
+                          ("preconditioner", preconditioner, dict(dry_run=True)),
+                          ("rewrite_planner", rewrite_planner, dict(smoke=True))):
+        t1 = time.perf_counter()
+        results = mod.measure(device=dev, **kw)
+        gs = mod.gates(results)
+        print_gates(name, gs)
+        for g in gs:
+            check(g.met or g.kind not in ("answer", "structural"),
+                  f"bench {name}: {g.name} ({g.kind}) {g.value!r} needs "
+                  f"{g.threshold}: {g.message}")
+        mod.write_json(str(out_dir / f"BENCH_{name}_cuda.json"), results, dev)
+        gates[name] = [dict(name=g.name, kind=g.kind, value=g.value,
+                            threshold=g.threshold, met=g.met) for g in gs]
+        print(f"phase 3g: bench {name} in {time.perf_counter() - t1:.1f} s")
+        del results
+        gc.collect()
+    row, raw = calibration
+    write_bench(str(out_dir / "BENCH_calibrate_cuda.json"), row, raw, dev)
+    torch.cuda.synchronize()
+    bench_launches = counts()
+    print(f"phase 3g: benches in {time.perf_counter() - t0:.1f} s; launches "
+          f"{json.dumps(bench_launches)}")
+    print(f"phase 3g: gates {json.dumps(gates, default=str)}")
+    return {"scatter": scatter_launches, "benches": bench_launches,
+            "times": times, "gates": gates, "keep": keep}
+
+
 def main() -> int:
     import torch
 
@@ -1160,8 +1423,11 @@ def main() -> int:
     from repro_torch.kernels.sptrsv_fused.ref import fused_solve_ref
     from repro_torch.kernels.sptrsv_fused.table import fused_table
     from repro_torch.kernels.sptrsv_level import cuda as level_cuda
+    from repro_torch.kernels.sptrsv_level import ops as level_ops
     from repro_torch.kernels.sptrsv_level.ops import make_packed_solver
-    from repro_torch.kernels.sptrsv_level.ref import level_walk_ref
+    from repro_torch.kernels.sptrsv_level.ref import (level_scatter_ref,
+                                                      level_walk_ref)
+    from repro_torch.kernels.sptrsv_level.table import make_scatter_table
     from repro_torch.kernels.trsm_block import cuda as trsm_cuda
     from repro_torch.kernels.trsm_block.ops import make_walk_table
     from repro_torch.kernels.trsm_block.ref import block_apply_ref, blocked_walk_ref
@@ -1349,6 +1615,31 @@ def main() -> int:
                 record(name, dt, xk, xr, f"m={m:2d} {what}: {table.num_segments} "
                        f"launches for {len(table.steps)} wavefronts {json.dumps(kinds)}, "
                        f"K max {int(table.host[:, 1].max())}")
+
+        # the scatter layout's level step over lung2's whole forward and
+        # transpose schedules: one launch per wavefront
+        for t, d in enumerate(("forward", "transpose")):
+            sfn = level_ops.make_solver(solvers["pallas_level", dt][t].schedule,
+                                        device="cuda")
+            srows, scols, svals, sdiag = sfn.buffers
+            vf, df = svals.to(tdt), sdiag.to(tdt)
+            for m in WIDTHS:
+                tail = () if m == 1 else (m,)
+                b_ext = randn((L.n + 1,) + tail, tdt)
+                b_ext[L.n] = 0
+                xk = torch.zeros((sfn.n_pad,) + tail, dtype=tdt, device=dev)
+                xr = xk.clone()
+                name = "sptrsv_level_scatter" + ("" if m == 1 else "_batched")
+                before = level_cuda.launches[name]
+                level_cuda.level_scatter(xk, b_ext, srows, scols, vf, df, sfn.table)
+                level_scatter_ref(xr, b_ext, srows.long(), scols.long(), vf, df,
+                                  sfn.table)
+                check(level_cuda.launches[name] - before == sfn.table.num_steps,
+                      f"{name} {dt} {d}: launches")
+                record(name, dt, xk, xr, f"m={m:2d} lung2 {d}: "
+                       f"{sfn.table.num_steps} launches, K max "
+                       f"{int(sfn.table.host[:, 0].max())}")
+            del sfn, srows, scols, svals, sdiag, vf, df
 
         # the fused solves on lung2's whole layouts: the single-RHS walk in
         # both directions, the batched grid forward
@@ -1757,6 +2048,20 @@ def main() -> int:
     for name in ("sptrsv_level", "sptrsv_fused", "spmv_ell"):
         check(tier["experiments"].get(name, 0) > 0,
               f"{name} never launched by the experiments")
+
+    # 3g: the scatter layout and the eight CI benches
+    t0 = time.perf_counter()
+    sc = scatter_phase(torch, dev, rng, L64, band64, solvers, rw_solvers,
+                       scipy_csr, reset_counts, counts, (row, raw))
+    path_launches["scatter"] = sc["scatter"]
+    path_launches["benches"] = sc["benches"]
+    print(f"phase 3g: scatter layout and benches in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name in ("sptrsv_level_scatter", "sptrsv_level_scatter_batched",
+                 "trsm_block_apply", "trsm_block_apply_batched", "spmv_ell",
+                 "spmv_ell_batched", "sptrsv_fused", "sptrsv_fused_batched"):
+        check(sc["scatter"][name] > 0,
+              f"{name} never launched on the scatter path")
     main_launches = {name: sum(p[name] for p in path_launches.values())
                      for name in KERNELS}
     for name in KERNELS:
@@ -1769,6 +2074,7 @@ def main() -> int:
     cases = [(tag, solvers[tag, "float64"][0]) for tag in LEVEL_TAGS]
     cases += [(f"rewrite:{tag}", rw_solvers[tag, "float64"][0]) for tag in VARIANTS]
     cases += [("blocked", blk_solvers["float64"][0])]
+    cases += list(sc["keep"].items())
     for m in WIDTHS:
         for tag, s in cases:
             reset_counts()
@@ -1968,9 +2274,29 @@ def main() -> int:
             print(f"library: {what} unavailable: {err}")
             return None
 
+    # the scatter level step on lung2's widest forward wavefront (K x R_pad)
+    sfn = level_ops.make_solver(fwd.schedule, device="cuda")
+    shost = sfn.table.host
+    si = int(np.argmax(shost[:, 0] * shost[:, 1]))
+    one = make_scatter_table(shost[si: si + 1], L.n)
+    sK, sRp, svo, sdo = (int(v) for v in shost[si])
+    srows, scols, svals, sdiag = sfn.buffers
+    srows64, scols64 = srows.long(), scols.long()
+    s_real = int((svals[svo: svo + sK * sRp] != 0).sum())
+    s_rows = int((srows[sdo: sdo + sRp] < L.n).sum())
+    print(f"phase 4: scatter level step: lung2's widest forward wavefront, "
+          f"K={sK} R_pad={sRp}, {s_rows} rows, {s_real} entries")
     for m in WIDTHS:
         b = torch.from_numpy(rng.standard_normal((L.n, m))).to(dev)
         bv = b[:, 0].contiguous() if m == 1 else b
+        sx = torch.zeros((sfn.n_pad,) + tuple(bv.shape[1:]), dtype=tdt, device=dev)
+        sb = torch.cat([bv, bv.new_zeros((1,) + tuple(bv.shape[1:]))])
+        row("sptrsv_level_scatter" if m == 1 else "sptrsv_level_scatter_batched",
+            time_ms(torch, lambda: level_cuda.level_scatter(
+                sx, sb, srows, scols, svals, sdiag, one)),
+            time_ms(torch, lambda: level_scatter_ref(
+                sx, sb, srows64, scols64, svals, sdiag, one)),
+            scatter_step_bound_ms(s_real, s_rows, m, dt), None)
         bhat = permute_rhs(bv, perm, lay.n_pad)
         x = torch.zeros((n_x,) + tuple(bv.shape[1:]), dtype=tdt, device=dev)
         bl = torch.cat([bv, bv.new_zeros((1,) + tuple(bv.shape[1:]))]

@@ -4,6 +4,7 @@ card and print (or write) the ``"cuda"`` row of
 
     python -m repro_torch.bench.calibrate                  # print the row
     python -m repro_torch.bench.calibrate --json calibration.json
+    python -m repro_torch.bench.calibrate --bench-json BENCH_calibrate.json
 
 Each coefficient, in FLOP-equivalents of the reference gather throughput,
 and what it is measured with (CUDA events around repeated calls, host
@@ -45,8 +46,9 @@ from ..kernels.backend import resolve_device
 from ..kernels.spmv_ell.ops import spmv
 from ..kernels.trsm_block.ops import block_apply
 from ..sparse import chain_matrix
+from .common import write_bench_json
 
-__all__ = ["measure", "main"]
+__all__ = ["measure", "write_bench", "main"]
 
 
 def _seconds(fn, device: torch.device, iters: int, warmup: int = 2) -> float:
@@ -143,6 +145,19 @@ def measure(device="cuda", *, smoke: bool = False) -> tuple:
     return row, raw
 
 
+def write_bench(path: str, row: BackendCalibration, raw: dict,
+                device="cuda") -> None:
+    """The measured row as a shared-schema ``BENCH_calibrate`` artifact:
+    the row's fields under its backend's name, and the gather rate and the
+    launch time (the JAX bench's ``--bench-json`` records)."""
+    write_bench_json(
+        path, "calibrate",
+        {row.backend: {f.name: getattr(row, f.name)
+                       for f in dataclasses.fields(row)},
+         "gather_gflops": raw["gather_gflops"], "launch_us": raw["launch_us"]},
+        backend=resolve_device(device).type)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
@@ -150,6 +165,9 @@ def main(argv=None) -> int:
                     help="small sizes and few iterations")
     ap.add_argument("--json", default="",
                     help="write the table with the measured row here")
+    ap.add_argument("--bench-json", default="",
+                    help="write a shared-schema BENCH_*.json artifact of the "
+                         "measured row here")
     args = ap.parse_args(argv)
     row, raw = measure(args.device, smoke=args.smoke)
     dev = resolve_device(args.device)
@@ -164,6 +182,8 @@ def main(argv=None) -> int:
         table[row.backend] = row
         save_calibrations(args.json, table)
         print(f"calibrate: wrote {args.json}")
+    if args.bench_json:
+        write_bench(args.bench_json, row, raw, args.device)
     return 0
 
 

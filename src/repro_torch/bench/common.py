@@ -8,9 +8,18 @@ device type the run executed on: ``"cuda"`` or ``"cpu"``), ``n`` /
 ``nnz`` (problem size), ``metric`` (leaf key) and ``value`` — so
 trajectories diff across benchmarks and across the two packages without
 per-script parsers.
+
+A bench keeps measuring apart from judging: its ``measure`` returns the
+results, its ``gates`` turns them into :class:`Gate` records (the
+reference bench's ``--smoke`` assertions, each with its kind), and
+:func:`hold` raises on the first one not met, with the reference's
+message, as the reference's ``--smoke`` run does.  Results keys that
+start with ``_`` feed the gates only and stay out of the JSON
+(:func:`public`).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import numbers
 import time
@@ -18,8 +27,9 @@ import time
 import numpy as np
 import torch
 
-__all__ = ["ROWS", "BENCH_SCHEMA", "LONG_CALL_S", "timeit", "emit",
-           "flush_csv", "to_records", "write_bench_json"]
+__all__ = ["ROWS", "BENCH_SCHEMA", "LONG_CALL_S", "GATE_KINDS", "Gate",
+           "timeit", "emit", "flush_csv", "to_records", "write_bench_json",
+           "hold", "print_gates", "public", "ready"]
 
 ROWS = []
 
@@ -27,6 +37,60 @@ BENCH_SCHEMA = ("name", "backend", "n", "nnz", "metric", "value")
 
 # a call at least this long is timed once, after one warm-up
 LONG_CALL_S = 0.2
+
+
+# "answer": a solve's error or finiteness; "structural": a count, plan or
+# residual that does not depend on the host's speed; "plan": a decision of
+# the auto planner, which reads the device's calibration row; "speed": a
+# ratio of times (the references set their thresholds on a CPU host)
+GATE_KINDS = ("answer", "structural", "plan", "speed")
+
+
+@dataclasses.dataclass(frozen=True)
+class Gate:
+    """One ``--smoke`` assertion of a reference bench: ``value`` beside
+    ``threshold`` (as the reference states it), whether it is ``met``,
+    its kind (:data:`GATE_KINDS`) and the reference's failure message."""
+
+    name: str
+    kind: str
+    met: bool
+    value: object
+    threshold: str
+    message: str = ""
+
+    def __post_init__(self):
+        if self.kind not in GATE_KINDS:
+            raise ValueError(f"gate kind {self.kind!r} not in {GATE_KINDS}")
+
+
+def hold(gates, kinds=GATE_KINDS) -> None:
+    """Raise ``AssertionError`` with the reference's message on the first
+    gate of ``kinds`` that is not met."""
+    for g in gates:
+        if g.kind in kinds and not g.met:
+            raise AssertionError(g.message or f"{g.name}: {g.value!r} "
+                                 f"(needs {g.threshold})")
+
+
+def print_gates(prefix: str, gates) -> None:
+    for g in gates:
+        print(f"  [gate] {prefix}.{g.name} ({g.kind}): {g.value!r} vs "
+              f"{g.threshold}: {'met' if g.met else 'NOT MET'}")
+
+
+def public(results: dict) -> dict:
+    """``results`` without the keys that start with ``_`` (gate inputs the
+    reference bench does not write)."""
+    return {k: v for k, v in results.items() if not str(k).startswith("_")}
+
+
+def ready(x: torch.Tensor) -> torch.Tensor:
+    """``x`` once the card has computed it (the port's
+    ``block_until_ready``): synchronises on a CUDA tensor."""
+    if x.is_cuda:
+        torch.cuda.synchronize(x.device)
+    return x
 
 
 def timeit(fn, *args, iters: int = 10, warmup: int = 3) -> float:

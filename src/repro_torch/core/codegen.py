@@ -3,10 +3,21 @@
 Each level is packed into an ELL *slab* — rows sorted by nnz, dependency
 columns/values padded to the level's max row width, stored transposed
 ``(K, R)`` so neighbouring rows sit in neighbouring memory (GPU threads of a
-warp read them coalesced).  The executors that consume a :class:`Schedule`
-live in :mod:`repro_torch.core.packed` (plain torch ops) and
-:mod:`repro_torch.kernels` (hand-written CUDA); this module is host numpy
-only, array for array the same packing as the JAX package.
+warp read them coalesced).  The permuted-layout executors that consume a
+:class:`Schedule` live in :mod:`repro_torch.core.packed` (plain torch ops)
+and :mod:`repro_torch.kernels` (hand-written CUDA); the packing here is
+host numpy, array for array the same as the JAX package's.
+
+The scatter layout's executors (``layout="scatter"``) live here too, as in
+the JAX package: every segment gathers ``b`` at its row ids, solves and
+scatters into ``x`` by row id, with the values uploaded once at build
+(the JAX package embeds them as trace-time constants).
+:func:`make_serial_solver` is a host loop over rows,
+:func:`make_levelset_solver` one gather/FMA/divide per level in plain
+torch ops (a coarsened chain a loop over its sub-slabs, tiny levels from
+their nonzero entries only), :func:`make_blocked_solver` one panel SpMV
+launch and one batched block-apply launch per super-level, and
+:func:`make_rhs_transform` the rewrite's ``b' = E b`` as one SpMV launch.
 """
 from __future__ import annotations
 
@@ -17,8 +28,10 @@ import numpy as np
 import torch
 
 from ..kernels.spmv_ell.ops import device_cols, device_row_len, spmv
+from ..kernels.sptrsv_level.ref import level_solve_ref
 from .csr import CSRMatrix
 from .levels import LevelSets, build_level_sets, compute_upper_levels
+from .rewrite import RewriteResult
 
 __all__ = [
     "LevelSlab",
@@ -33,6 +46,10 @@ __all__ = [
     "serial_arrays",
     "slab_padded_flops",
     "stack_sub_slabs",
+    "make_serial_solver",
+    "make_levelset_solver",
+    "make_blocked_solver",
+    "make_rhs_transform",
 ]
 
 
@@ -384,3 +401,187 @@ def stack_sub_slabs(slab: LevelSlab, n: int, *, with_src: bool = False):
     if with_src:
         return rows, cols, vals, diag, val_src, diag_src
     return rows, cols, vals, diag
+
+
+# --------------------------------------------------------------------------
+# Scatter-layout executors
+# --------------------------------------------------------------------------
+def _upload(a: np.ndarray, device, dtype=None) -> torch.Tensor:
+    a = np.ascontiguousarray(a if dtype is None else a.astype(dtype, copy=False))
+    return torch.from_numpy(a).to(device)
+
+
+def _coef(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A per-row coefficient broadcast over the batch axis of ``x``."""
+    return a if x.dim() == 1 else a[:, None]
+
+
+def make_serial_solver(L: CSRMatrix, *, upper: bool = False, device="cuda"):
+    """Algorithm 1 of the paper: row-serial substitution as a host loop over
+    the rows in scan order (reversed for ``upper=True``, the backward
+    substitution of the transpose solve), each row one gather, FMA-sum and
+    divide of its ``K`` slots, pads included, as the JAX package's
+    ``lax.scan`` reads them.  ``b`` may be ``(n,)`` or ``(n, m)``; the
+    values are cast to its dtype."""
+    dev = torch.device(device)
+    cols, vals, diag, _, _, order = serial_arrays(L, upper=upper)
+    cols_o = _upload(cols[order], dev, np.int64)
+    vals_o = _upload(vals[order], dev)
+    diag_o = _upload(diag[order], dev)
+    idx = _upload(order, dev, np.int64)
+    rows = order.tolist()
+
+    def solve(b: torch.Tensor) -> torch.Tensor:
+        v, d = vals_o.to(b.dtype), diag_o.to(b.dtype)
+        if b.dim() == 2:
+            v = v[:, :, None]
+        bo = b.index_select(0, idx)
+        x = torch.zeros_like(b)
+        for t, i in enumerate(rows):
+            x[i] = (bo[t] - (v[t] * x[cols_o[t]]).sum(0)) / d[t]
+        return x
+
+    return solve
+
+
+def _slab_tensors(rows, cols, vals, diag, device) -> tuple:
+    return (_upload(rows, device, np.int64), _upload(cols, device, np.int64),
+            _upload(vals, device), _upload(diag, device))
+
+
+def _apply_slab(x, b, slab) -> None:
+    """One level as a gather/FMA/divide segment, in place into ``x``:
+    ``x[rows] = (b[rows] - sum_k vals[k] * x[cols[k]]) / diag``."""
+    rows, cols, vals, diag = slab
+    xl = level_solve_ref(x, b.index_select(0, rows), cols,
+                         vals.to(x.dtype), diag.to(x.dtype))
+    x.index_copy_(0, rows, xl)
+
+
+def _unrolled_terms(slab: LevelSlab, device) -> tuple:
+    """A tiny level's nonzero entries (the JAX package emits one scalar
+    term per nonzero value, literal indices and values): ``(rows (R,),
+    slot row (E,), column (E,), value (E,), diag (R,))``."""
+    k, r = np.nonzero(slab.vals != 0)
+    order = np.lexsort((k, r))          # row by row, slots in order
+    k, r = k[order], r[order]
+    return (_upload(slab.rows, device, np.int64), _upload(r, device, np.int64),
+            _upload(slab.cols[k, r], device, np.int64),
+            _upload(slab.vals[k, r], device), _upload(slab.diag, device))
+
+
+def _apply_slab_unrolled(x, b, terms) -> None:
+    """A tiny level from its nonzero entries only, in place into ``x``."""
+    rows, ridx, cidx, vals, diag = terms
+    t = _coef(vals.to(x.dtype), x) * x.index_select(0, cidx)
+    s = torch.zeros((rows.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
+                    device=x.device).index_add_(0, ridx, t)
+    xl = (b.index_select(0, rows) - s) / _coef(diag.to(x.dtype), x)
+    x.index_copy_(0, rows, xl)
+
+
+def _apply_slab_chain(x, b_ext, chain) -> None:
+    """A coarsened slab: its ``depth`` dependent sub-slabs back to back,
+    each a gather/FMA/divide over the stacked uniform arrays.  ``x`` is
+    ``(n + 1[, m])`` with the scratch slot last (pad rows carry the row id
+    ``n``, read ``b_ext[n] = 0``, divide by 1 and write the slot)."""
+    rows, cols, vals, diag = chain
+    vals, diag = vals.to(x.dtype), diag.to(x.dtype)
+    for t in range(rows.shape[0]):
+        xl = level_solve_ref(x, b_ext.index_select(0, rows[t]), cols[t],
+                             vals[t], diag[t])
+        x.index_copy_(0, rows[t], xl)
+
+
+def make_levelset_solver(schedule: Schedule, *, unroll_threshold: int = 0,
+                         device="cuda"):
+    """Level-set executor in the scatter layout: one segment per level in
+    level order, in plain torch ops.  ``unroll_threshold > 0`` computes
+    levels of at most that many rows from their nonzero entries only (the
+    JAX package's constant-embedded scalar code).  Coarsened slabs
+    (``depth > 1``) run their sub-slab chain in order, with a scratch slot
+    ``n`` for their pad rows (sliced off on return); chains are never
+    unrolled.  ``b`` may be ``(n,)`` or ``(n, m)``."""
+    dev = torch.device(device)
+    n = schedule.n
+    chained = any(s.depth > 1 for s in schedule.slabs)
+    program = []
+    for slab in schedule.slabs:
+        if slab.depth > 1:
+            program.append(("chain", _slab_tensors(
+                *stack_sub_slabs(slab, n), dev)))
+        elif slab.R <= unroll_threshold:
+            program.append(("unrolled", _unrolled_terms(slab, dev)))
+        else:
+            program.append(("slab", _slab_tensors(
+                slab.rows, slab.cols, slab.vals, slab.diag, dev)))
+
+    def solve(b: torch.Tensor) -> torch.Tensor:
+        tail = tuple(b.shape[1:])
+        ext = 1 if chained else 0
+        x = torch.zeros((n + ext,) + tail, dtype=b.dtype, device=b.device)
+        b_ext = torch.cat([b, b.new_zeros((1,) + tail)]) if chained else b
+        for kind, slab in program:
+            if kind == "chain":
+                _apply_slab_chain(x, b_ext, slab)
+            elif kind == "unrolled":
+                _apply_slab_unrolled(x, b, slab)
+            else:
+                _apply_slab(x, b, slab)
+        return x[:n] if chained else x
+
+    return solve
+
+
+def make_blocked_solver(bsched, *, device="cuda"):
+    """Blocked (supernodal) executor over a
+    :class:`~repro_torch.core.coarsen.BlockSchedule`, scatter layout: per
+    super-level one panel SpMV launch (the off-block update ``s = Panel
+    x``) and one batched dense diagonal-block apply launch
+
+        x_blk = D⁻¹_blk (b_blk − s_blk)
+
+    through :func:`repro_torch.kernels.trsm_block.ops.make_block_apply`.
+    ``b`` may be ``(n,)`` or ``(n, m)``.  Lanes are block-major with the
+    sentinel row ``n`` for padding, so ``x`` carries one scratch slot, reset
+    to zero after every super-level and sliced off on return."""
+    from ..kernels.trsm_block.ops import make_block_apply
+
+    apply_blocks = make_block_apply()
+    dev = torch.device(device)
+    n = bsched.n
+    slabs = [(_upload(s.lane_row, dev, np.int64),
+              device_cols(s.cols, n + 1, dev), _upload(s.vals, dev),
+              _upload(s.dinv, dev), s.B, s.T) for s in bsched.slabs]
+    cast = {}
+
+    def solve(b: torch.Tensor) -> torch.Tensor:
+        dt = b.dtype
+        if dt not in cast:
+            cast[dt] = [(v.to(dt), d.to(dt)) for _, _, v, d, _, _ in slabs]
+        tail = tuple(b.shape[1:])
+        b_ext = torch.cat([b, b.new_zeros((1,) + tail)])
+        x = torch.zeros((n + 1,) + tail, dtype=dt, device=b.device)
+        for (lane, cols, _, _, B, T), (vals, dinv) in zip(slabs, cast[dt]):
+            rhs = b_ext.index_select(0, lane) - spmv(x, cols, vals)
+            xb = apply_blocks(dinv, rhs.reshape((B, T) + tail))
+            x.index_copy_(0, lane, xb.reshape((B * T,) + tail))
+            x[n] = 0
+        return x[:n]
+
+    return solve
+
+
+def make_rhs_transform(res: RewriteResult, *, device="cuda"):
+    """``b' = E b`` — the per-solve RHS update of the rewriting method as one
+    SpMV launch (each row stops at its length), batched ``B' = E B`` for
+    ``B: (n, m)``.  Returns ``None`` when E is the identity (no rewrite
+    survived the budgets)."""
+    if res.stats.e_nnz_offdiag == 0:
+        return None
+    ell = device_ell(build_ell(res.E), res.E.n, device)
+
+    def transform(b: torch.Tensor) -> torch.Tensor:
+        return ell_spmv(ell, b)
+
+    return transform

@@ -8,7 +8,8 @@ executor tied together, on an explicit torch device.
     fwd, bwd = SpTRSV.build_pair(L, device="cuda")         # one analysis
     solver.refresh(new_data)     # same pattern, new values, in place
 
-Strategies (all in ``layout="permuted"``):
+Strategies (each in ``layout="permuted"``, the default, or
+``layout="scatter"``):
 
 ``serial``          row-serial substitution (the paper's Algorithm 1) as a
                     Python loop over rows in torch ops: the correctness
@@ -51,12 +52,20 @@ breakdown policy; ``precision="mixed"`` stores bf16 off-diagonal values).
 :meth:`SpTRSV.build_cold` builds the cheapest exact pair (``serial``).
 
 On ``device="cpu"`` the kernel strategies run their kernels' plain torch
-versions.  ``strategy="distributed"``, ``layout="scatter"`` and ``mesh=``
-raise ``NotImplementedError`` naming their ROADMAP item.
+versions.  ``strategy="distributed"`` and ``mesh=`` raise
+``NotImplementedError`` naming their ROADMAP item.
 
-Value buffers are persistent device tensors: :meth:`SpTRSV.refresh`
-re-packs new values with one vectorized gather and ``copy_``s them into the
-same tensors, so their addresses stay fixed.
+``layout="permuted"`` runs the solve in schedule-order permuted space with
+the values in persistent device tensors: :meth:`SpTRSV.refresh` re-packs
+new values with one vectorized gather and ``copy_``s them into the same
+tensors, so their addresses stay fixed.  ``layout="scatter"`` is the JAX
+package's per-segment scatter layout (:mod:`repro_torch.core.codegen`'s
+executors, and each kernel module's ``make_solver``): every segment gathers
+``b`` at its row ids and scatters its solution into ``x`` by row id, the
+values are fixed when the solver is built, and ``refresh`` falls back to a
+cold rebuild.  ``pallas_level`` then runs the TPU level kernel's own step
+(``sptrsv_level_scatter``, one launch per wavefront) and ``blocked`` a panel
+SpMV and a batched block apply (``trsm_block_apply``) per super-level.
 """
 from __future__ import annotations
 
@@ -73,7 +82,9 @@ from .coarsen import (SEGMENT_COST, BlockSchedule, CoarsenConfig, PlanDecision,
                       RewriteCandidate, SweepCandidate, blocked_candidate,
                       build_block_schedule, coarsen_schedule, plan_strategy,
                       should_consider_rewrite)
-from .codegen import Schedule, build_schedule
+from .codegen import (Schedule, build_schedule, make_blocked_solver,
+                      make_levelset_solver, make_rhs_transform,
+                      make_serial_solver)
 from .csr import CSRMatrix
 from .guard import GuardConfig, SolveGuard, scan_values
 from .levels import (LevelSets, SupernodeConfig, Supernodes, build_level_sets,
@@ -95,7 +106,7 @@ logger = logging.getLogger(__name__)
 
 STRATEGIES = ("serial", "levelset", "levelset_unroll", "pallas_level",
               "pallas_fused", "sweep", "blocked", "auto")
-LAYOUTS = ("permuted",)
+LAYOUTS = ("permuted", "scatter")
 
 # What the JAX package offers and the port does not yet: ROADMAP queue A.
 _UNPORTED_STRATEGIES = {"distributed": "A10"}
@@ -176,8 +187,6 @@ def _build_options(*, strategy: str = "levelset", unroll_threshold: int = 4,
         _not_ported(f"strategy={strategy!r}", _UNPORTED_STRATEGIES[strategy])
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; ported: {STRATEGIES}")
-    if layout == "scatter":
-        _not_ported("layout='scatter'", "A2")
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}; ported: {LAYOUTS}")
     if mesh is not None:
@@ -192,6 +201,7 @@ def _build_options(*, strategy: str = "levelset", unroll_threshold: int = 4,
     _as_supernode_config(supernodes)
     return dict(strategy=strategy, unroll_threshold=unroll_threshold,
                 bucket_pad_ratio=bucket_pad_ratio, coarsen=coarsen,
+                layout=layout,
                 rewrite=_as_rewrite_config(rewrite),
                 guard=_as_guard_config(guard), sweep=sweep,
                 supernodes=supernodes, device=resolve_device(device))
@@ -203,15 +213,16 @@ class _RefreshCtx:
     user's factor (pattern reference), ``values_map`` reorders its data into
     the solved system's storage (the CSC permutation for transpose solvers),
     ``repack`` turns system (or rewritten ``L'``) data into the executor's
-    value arrays.  Rewritten solvers also keep the rewrite (its plan and
-    the ``L'``/``E`` patterns), ``e_repack`` for E's values, and
-    ``rebuild(data)``, the cold build a plan that does not transfer falls
-    back to."""
+    value arrays (``None`` in the scatter layout, whose values are fixed at
+    build).  Rewritten solvers also keep the rewrite (its plan and the
+    ``L'``/``E`` patterns), ``e_repack`` for E's values, and
+    ``rebuild(data)``, the cold build a plan that does not transfer (or a
+    scatter solver) falls back to."""
 
     source: CSRMatrix
     system: CSRMatrix
     values_map: Optional[np.ndarray]
-    repack: Callable
+    repack: Optional[Callable]
     rewrite: Optional[RewriteResult] = None
     e_repack: Optional[Callable] = None
     rebuild: Optional[Callable] = None
@@ -232,7 +243,7 @@ class SpTRSV:
     schedule: Optional[Schedule]
     device: torch.device
     _solve_fn: Callable
-    _values: tuple
+    _values: Optional[tuple]                  # None: values fixed at build
     _refresh_ctx: _RefreshCtx
     transpose: bool = False
     layout: str = "permuted"
@@ -269,7 +280,9 @@ class SpTRSV:
         of ``auto``; ``block_kernel`` takes ``"auto"`` only),
         ``unroll_threshold`` (``levelset_unroll``'s segment width, and the
         coarsening cost model's), ``bucket_pad_ratio`` (> 1 splits levels
-        into nnz buckets) and ``layout="permuted"``.  ``mesh`` is not
+        into nnz buckets) and ``layout`` (``"permuted"``, the default, or
+        ``"scatter"``: see the module docstring; ``guard`` with
+        ``precision="mixed"`` needs ``"permuted"``).  ``mesh`` is not
         ported yet and raises ``NotImplementedError``."""
         opts = _build_options(**options)
         if not L.is_lower_triangular():
@@ -333,6 +346,7 @@ class SpTRSV:
         device: torch.device,
         source: CSRMatrix,
         values_map: Optional[np.ndarray],
+        layout: str = "permuted",
     ) -> "SpTRSV":
         """``system`` is the triangular matrix actually solved (``L``
         forward, ``L.transpose()`` backward) with its level sets analyzed;
@@ -344,7 +358,14 @@ class SpTRSV:
             upper=upper, strategy=strategy, unroll_threshold=unroll_threshold,
             bucket_pad_ratio=bucket_pad_ratio, coarsen=coarsen,
             rewrite=rewrite, guard=guard, sweep=sweep, supernodes=supernodes,
-            device=device)
+            device=device, layout=layout)
+        if guard is not None and guard.precision == "mixed" \
+                and layout != "permuted":
+            raise ValueError(
+                "guard precision='mixed' requires layout='permuted' — "
+                "mixed storage lowers the runtime value buffers, and the "
+                "scatter layout embeds values as trace-time constants")
+        permuted = layout == "permuted"
         analysis = analyze(system, levels, upper=upper)
         ccfg = _as_coarsen_config(coarsen)
         scfg = _as_sweep_config(sweep)
@@ -458,9 +479,11 @@ class SpTRSV:
                 ccfg = plan_ccfg
 
         rhs_fn = e_values = e_repack = None
-        if rres is not None:
+        if rres is not None and permuted:
             rhs_fn, e_values, e_repack = make_packed_rhs_transform(
                 rres, device=device)
+        elif rres is not None:
+            rhs_fn = make_rhs_transform(rres, device=device)
 
         def _maybe_coarsen(sched: Schedule) -> Schedule:
             return _coarsened(ccfg) if ccfg is not None else sched
@@ -470,59 +493,76 @@ class SpTRSV:
                          for a in arrays)
 
         schedule = block_schedule = sweep_stats = sweep_exec = None
+        values = repack = packed_stats = None
         if strategy == "serial":
-            fn, values, repack = make_packed_serial_solver(
-                target, upper=upper, device=device)
-            packed_stats = PackedStats(
-                permutation_applied=False,
-                value_bytes=sum(int(v.nbytes) for v in values),
-                index_bytes=0, padded_value_bytes=0, n_pad=system.n,
-                num_segments=1)
+            if permuted:
+                fn, values, repack = make_packed_serial_solver(
+                    target, upper=upper, device=device)
+                packed_stats = PackedStats(
+                    permutation_applied=False,
+                    value_bytes=sum(int(v.nbytes) for v in values),
+                    index_bytes=0, padded_value_bytes=0, n_pad=system.n,
+                    num_segments=1)
+            else:
+                fn = make_serial_solver(target, upper=upper, device=device)
         elif strategy in ("levelset", "levelset_unroll"):
             schedule = _maybe_coarsen(_schedule())
-            playout = build_packed_layout(schedule)
-            fn = make_packed_levelset_solver(
-                playout, device=device,
-                unroll_threshold=(unroll_threshold
-                                  if strategy == "levelset_unroll" else 0))
-            values = _upload((playout.vals_flat, playout.diag_flat))
-            repack = lambda data, _pl=playout: pack_values(_pl, data)  # noqa: E731
-            packed_stats = playout.stats()
+            ut = unroll_threshold if strategy == "levelset_unroll" else 0
+            if permuted:
+                playout = build_packed_layout(schedule)
+                fn = make_packed_levelset_solver(playout, device=device,
+                                                 unroll_threshold=ut)
+                values = _upload((playout.vals_flat, playout.diag_flat))
+                repack = lambda data, _pl=playout: pack_values(_pl, data)  # noqa: E731
+                packed_stats = playout.stats()
+            else:
+                fn = make_levelset_solver(schedule, unroll_threshold=ut,
+                                          device=device)
         elif strategy == "pallas_level":
             from ..kernels.sptrsv_level import ops as level_ops
 
             schedule = _maybe_coarsen(_schedule())
-            fn, values, repack, playout = level_ops.make_packed_solver(
-                schedule, device=device)
-            packed_stats = playout.stats()
+            if permuted:
+                fn, values, repack, playout = level_ops.make_packed_solver(
+                    schedule, device=device)
+                packed_stats = playout.stats()
+            else:
+                fn = level_ops.make_solver(schedule, device=device)
         elif strategy == "pallas_fused":
             from ..kernels.sptrsv_fused import ops as fused_ops
 
             # one launch walks every wavefront; coarsening would only
             # re-partition it
             schedule = _schedule()
-            fn, values, repack, flay = fused_ops.make_packed_solver(
-                schedule, device=device)
-            packed_stats = PackedStats(
-                permutation_applied=True,
-                value_bytes=int(flay.vals.nbytes + flay.diag.nbytes),
-                index_bytes=int(flay.cols.nbytes),
-                padded_value_bytes=int(
-                    ((flay.val_src < 0).sum() + (flay.diag_src < 0).sum())
-                    * flay.vals.itemsize),
-                n_pad=flay.n_pad,
-                num_segments=1,
-            )
+            if permuted:
+                fn, values, repack, flay = fused_ops.make_packed_solver(
+                    schedule, device=device)
+                packed_stats = PackedStats(
+                    permutation_applied=True,
+                    value_bytes=int(flay.vals.nbytes + flay.diag.nbytes),
+                    index_bytes=int(flay.cols.nbytes),
+                    padded_value_bytes=int(
+                        ((flay.val_src < 0).sum() + (flay.diag_src < 0).sum())
+                        * flay.vals.itemsize),
+                    n_pad=flay.n_pad,
+                    num_segments=1,
+                )
+            else:
+                fn = fused_ops.make_solver(schedule, device=device)
         elif strategy == "blocked":
             block_schedule = _block_schedule()
-            blay = build_packed_blocked_layout(block_schedule)
-            fn = make_packed_blocked_solver(blay, device=device)
-            values = _upload(pack_blocked_values(blay, target.data))
-            repack = lambda data, _bl=blay: pack_blocked_values(_bl, data)  # noqa: E731
-            packed_stats = blay.stats()
+            if permuted:
+                blay = build_packed_blocked_layout(block_schedule)
+                fn = make_packed_blocked_solver(blay, device=device)
+                values = _upload(pack_blocked_values(blay, target.data))
+                repack = lambda data, _bl=blay: pack_blocked_values(_bl, data)  # noqa: E731
+                packed_stats = blay.stats()
+            else:
+                fn = make_blocked_solver(block_schedule, device=device)
         else:  # sweep
             # whole-matrix D + N split, k sweeps, no schedule; the exact
-            # fallback is built on first use and kept in step by refresh
+            # fallback is built on first use (in this layout) and kept in
+            # step by refresh
             slayout = build_sweep_layout(target, upper=upper)
             cur_target = [target]
             fb_holder: dict = {}
@@ -535,26 +575,28 @@ class SpTRSV:
                         sweep=None, supernodes=None,
                         unroll_threshold=unroll_threshold,
                         bucket_pad_ratio=bucket_pad_ratio, coarsen=coarsen,
-                        device=device, source=cur_target[0], values_map=None)
+                        device=device, source=cur_target[0], values_map=None,
+                        layout=layout)
                 return fb_holder["s"].solve
 
             fn, sweep_stats, sweep_exec = make_sweep_solver(
                 slayout, scfg,
                 fallback=_fallback if scfg.fallback is not None else None,
-                device=device)
-            values = _upload((slayout.ell.vals, slayout.diag))
+                runtime_values=permuted, device=device)
+            if permuted:
+                values = _upload((slayout.ell.vals, slayout.diag))
 
-            def repack(target_data, _sl=slayout, _t=target):
-                cur_target[0] = CSRMatrix(
-                    _t.indptr, _t.indices,
-                    np.asarray(target_data).astype(_t.dtype, copy=False),
-                    _t.shape)
-                if "s" in fb_holder:
-                    fb_holder["s"].refresh(cur_target[0].data)
-                return pack_sweep_values(_sl, target_data)
+                def repack(target_data, _sl=slayout, _t=target):
+                    cur_target[0] = CSRMatrix(
+                        _t.indptr, _t.indices,
+                        np.asarray(target_data).astype(_t.dtype, copy=False),
+                        _t.shape)
+                    if "s" in fb_holder:
+                        fb_holder["s"].refresh(cur_target[0].data)
+                    return pack_sweep_values(_sl, target_data)
 
-            packed_stats = ell_packed_stats(slayout.ell, slayout.diag,
-                                            n=system.n)
+                packed_stats = ell_packed_stats(slayout.ell, slayout.diag,
+                                                n=system.n)
 
         if guard is not None and guard.precision == "mixed":
             # bf16 off-diagonal and f32 diagonal storage; the executors cast
@@ -579,7 +621,7 @@ class SpTRSV:
                 source=source, system=system, values_map=values_map,
                 repack=repack, rewrite=rres, e_repack=e_repack,
                 rebuild=rebuild),
-            transpose=upper, packed_stats=packed_stats,
+            transpose=upper, layout=layout, packed_stats=packed_stats,
             block_schedule=block_schedule,
             supernodes=(block_schedule.supernodes
                         if block_schedule is not None else None),
@@ -598,7 +640,7 @@ class SpTRSV:
                     rewrite=None, guard=None, sweep=None, supernodes=None,
                     coarsen=None, unroll_threshold=unroll_threshold,
                     bucket_pad_ratio=bucket_pad_ratio, device=device,
-                    source=sys2, values_map=None).solve
+                    source=sys2, values_map=None, layout=layout).solve
 
             solver.guard = SolveGuard(
                 system, upper=upper, config=guard,
@@ -641,7 +683,10 @@ class SpTRSV:
         """The unguarded pipeline (RHS transform + executor) on the live
         value buffers — what the guard wraps and refines."""
         if self._rhs_fn is not None:
-            b = self._rhs_fn(b, self._e_values)
+            b = (self._rhs_fn(b, self._e_values)
+                 if self._e_values is not None else self._rhs_fn(b))
+        if self._values is None:
+            return self._solve_fn(b)
         return self._solve_fn(b, self._values)
 
     def solve_batched(self, B: torch.Tensor) -> torch.Tensor:
@@ -664,9 +709,10 @@ class SpTRSV:
         the host) and copied into the existing device tensors (a mixed
         precision solver's bf16/f32 buffers cast them).  A ``sweep``
         solver's lazily built fallback and a guard's residual buffers are
-        refreshed with them.  A plan that does not transfer to the new
-        values (a zero pivot, or fill outside the cached pattern) falls back
-        to a cold rebuild, whose buffers are new.  ``validate`` (default on)
+        refreshed with them.  A scatter-layout solver (values fixed at
+        build), and a plan that does not transfer to the new values (a zero
+        pivot, or fill outside the cached pattern), fall back to a cold
+        rebuild, whose buffers are new.  ``validate`` (default on)
         raises ``ValueError`` on non-finite values or zero pivots; pass
         ``validate=False`` to let a guarded solver's breakdown policy handle
         them.  Returns ``self``."""
@@ -695,6 +741,15 @@ class SpTRSV:
                     f"pivot(s); pass validate=False to accept them anyway "
                     f"(a guarded solver then applies its breakdown policy "
                     f"at solve time)")
+        def _cold(reason: str) -> "SpTRSV":
+            logger.warning("SpTRSV.refresh: %s — falling back to a cold "
+                           "rebuild", reason)
+            self.__dict__.update(ctx.rebuild(data).__dict__)
+            return self
+
+        if ctx.repack is None:
+            return _cold(f"layout={self.layout!r} embeds values as "
+                         "trace-time constants")
         sys_data = (data[ctx.values_map] if ctx.values_map is not None
                     else data).astype(ctx.system.dtype, copy=False)
         target_data = sys_data
@@ -705,10 +760,7 @@ class SpTRSV:
                     CSRMatrix(ctx.system.indptr, ctx.system.indices, sys_data,
                               ctx.system.shape), rw.plan, rw.L, rw.E)
             except RewriteReplayError as err:
-                logger.warning("SpTRSV.refresh: rewrite plan did not transfer "
-                               "(%s) — falling back to a cold rebuild", err)
-                self.__dict__.update(ctx.rebuild(data).__dict__)
-                return self
+                return _cold(f"rewrite plan did not transfer ({err})")
             if ctx.e_repack is not None:
                 self._e_values.copy_(torch.from_numpy(ctx.e_repack(e_data)))
             self.rewrite_result = dataclasses.replace(
@@ -749,13 +801,13 @@ class SpTRSV:
             "dense_block_fraction": (sn.dense_block_fraction if sn is not None
                                      else an.dense_block_fraction),
             "permutation_applied": bool(ps and ps.permutation_applied),
-            "packed_value_bytes": ps.value_bytes,
-            "packed_index_bytes": ps.index_bytes,
-            "packed_bytes": ps.value_bytes + ps.index_bytes,
+            "packed_value_bytes": ps.value_bytes if ps else None,
+            "packed_index_bytes": ps.index_bytes if ps else None,
+            "packed_bytes": ps.value_bytes + ps.index_bytes if ps else None,
             "pattern_hash": self.pattern_hash,
-            "padded_value_bytes": ps.padded_value_bytes,
-            "n_pad": ps.n_pad,
-            "refreshable_in_place": True,
+            "padded_value_bytes": ps.padded_value_bytes if ps else None,
+            "n_pad": ps.n_pad if ps else None,
+            "refreshable_in_place": self._refresh_ctx.repack is not None,
             "rewrite": rs.summary() if rs else None,
             "rewrite_policy": rs.policy if rs else None,
             "critical_path_flops": self.analysis.critical_path_flops,

@@ -214,14 +214,19 @@ def residual_terms(b: torch.Tensor, x: torch.Tensor, vals: torch.Tensor,
 
 
 def make_sweep_executor(layout: SweepLayout, k: int, *, verify: bool = True,
-                        device) -> Callable:
+                        runtime_values: bool = True, device) -> Callable:
     """Returns ``run(b, values)``: ``k`` sweeps over ``values = (vals,
     diag)`` (runtime buffers of the layout's shapes), then with ``verify``
-    the residual ratio — ``(x, ratio)`` — else just ``x``."""
+    the residual ratio — ``(x, ratio)`` — else just ``x``.  With
+    ``runtime_values=False`` (the scatter layout) the layout's values are
+    uploaded once here and ``run(b)`` takes no buffers."""
     ell = device_ell(layout.ell, layout.n, device)
+    fixed = None
+    if not runtime_values:
+        fixed = (ell.vals, torch.from_numpy(layout.diag).to(device))
 
-    def run(b: torch.Tensor, values):
-        vals, diag = values
+    def run(b: torch.Tensor, values=None):
+        vals, diag = fixed if values is None else values
         vf = vals.to(b.dtype)
         d = _coef(diag.to(b.dtype), b)
         x = b / d
@@ -237,20 +242,23 @@ def make_sweep_executor(layout: SweepLayout, k: int, *, verify: bool = True,
 
 def make_sweep_solver(layout: SweepLayout, config: SweepConfig, *,
                       fallback: Optional[Callable[[], Callable]] = None,
-                      device):
+                      runtime_values: bool = True, device):
     """The speculative solve-then-correct wrapper.
 
     ``fallback`` is a zero-argument provider of an exact ``solve(b)``
     (built lazily), required unless ``config.fallback is None``.  Returns
     ``(solve(b, values), stats, run)``: ``stats`` the live
-    :class:`SweepStats`, ``run`` the executor."""
+    :class:`SweepStats`, ``run`` the executor.  With
+    ``runtime_values=False`` (the scatter layout) the values are fixed at
+    build and ``solve(b)`` takes none."""
     verify = config.fallback is not None
     if verify and fallback is None:
         raise ValueError("a verified sweep solver needs a fallback provider")
-    run = make_sweep_executor(layout, config.k, verify=verify, device=device)
+    run = make_sweep_executor(layout, config.k, verify=verify,
+                              runtime_values=runtime_values, device=device)
     stats = SweepStats(k=config.k)
 
-    def solve(b: torch.Tensor, values) -> torch.Tensor:
+    def solve(b: torch.Tensor, values=None) -> torch.Tensor:
         out = run(b, values)
         stats.solves += 1
         if not verify:

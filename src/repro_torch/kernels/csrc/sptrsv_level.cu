@@ -1,5 +1,7 @@
 // SpTRSV level kernels for Hopper (sm_90a): the level-scheduled solve over
-// ELL slabs in the permuted packed layout, one launch per segment.
+// ELL slabs in the permuted packed layout, one launch per segment; and, at
+// the end of the file, the scatter layout's step (one wavefront in original
+// row order, then its row scatter).
 //
 // Replaces the TPU kernels `level_kernel` / `level_solve_blocks` and
 // `level_kernel_batched` / `level_solve_blocks_batched` of the JAX package
@@ -459,7 +461,104 @@ int level_walk_any(T* x, const T* bhat, const int* cols, const T* vals,
                               row_len, sub_offs, tab, nseg, stream);
 }
 
+// ---------------------------------------------------------------------------
+// The scatter layout's level step (layout="scatter"; ops.make_solver): the
+// TPU kernel's own function on one wavefront's (K, Rp) slab in original row
+// order,
+//
+//     xl[r, j] = (b[rows[r], j] - sum_k vals[k, r] * x[cols[k, r], j]) / diag[r]
+//
+// then the row scatter x[rows[r], j] = xl[r, j] and x[n, j] = 0: pad lanes
+// carry the row id n (the scratch slot), gather b[n] = 0 and store 0 there,
+// which is the JAX wrapper's x.at[rows].set(xl) followed by x.at[n].set(0).
+// A step is two kernels on one stream: the level kernel writes xl to a
+// scratch slab, so no thread reads an x row that another thread of the
+// step writes (a pad slot's column 0 may be a row of the step), and the
+// scatter kernel stores it.  The host walks the steps in order, a
+// coarsened chain's sub-steps one by one.  A thread per (row, RHS column),
+// the m columns of a row on neighbouring threads; sums in the value dtype,
+// over every slot of the row as the TPU kernel reads them (pads add
+// 0 * x[0]).
+//
+// Bound: like the walk, launch latency and the dependent load chain cols
+// -> x; scatter is not a performance path (the permuted walk is), so the
+// kernel is the simple one.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+scatter_level_kernel(const T* x, const T* __restrict__ b, const int* __restrict__ rows,
+                     const int* __restrict__ cols, const T* __restrict__ vals,
+                     const T* __restrict__ diag, T* __restrict__ xl, int K, int Rp,
+                     int m, long long ldx, long long ldb) {
+  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (i >= static_cast<long long>(Rp) * m) return;
+  const int r = static_cast<int>(i / m);
+  const int j = static_cast<int>(i - static_cast<long long>(r) * m);
+  T acc = b[static_cast<long long>(__ldg(rows + r)) * ldb + j];
+  for (int k = 0; k < K; ++k) {
+    const long long e = static_cast<long long>(k) * Rp + r;
+    acc -= __ldg(vals + e) * x[static_cast<long long>(__ldg(cols + e)) * ldx + j];
+  }
+  xl[i] = acc / __ldg(diag + r);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+scatter_rows_kernel(T* __restrict__ x, const T* __restrict__ xl,
+                    const int* __restrict__ rows, int n, int Rp, int m, long long ldx) {
+  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  if (i >= static_cast<long long>(Rp) * m) return;
+  const int r = static_cast<int>(i / m);
+  const int j = static_cast<int>(i - static_cast<long long>(r) * m);
+  const int row = __ldg(rows + r);
+  x[static_cast<long long>(row) * ldx + j] = row == n ? T(0) : xl[i];
+}
+
+// `tab` is a host array of (K, Rp, val_off, diag_off) per step; val_off
+// indexes cols and vals, diag_off rows and diag; xl holds Rp x m values of
+// the widest step.
+template <typename T>
+int level_scatter(T* x, const T* b, const int* rows, const int* cols, const T* vals,
+                  const T* diag, T* xl, const long long* tab, int nstep, int n, int m,
+                  long long ldx, long long ldb, cudaStream_t stream) {
+  constexpr int kScatterGeo = 4;
+  for (int i = 0; i < nstep; ++i) {
+    const long long* g = tab + kScatterGeo * static_cast<long long>(i);
+    const int K = static_cast<int>(g[0]), Rp = static_cast<int>(g[1]);
+    const long long items = static_cast<long long>(Rp) * m;
+    if (items == 0) continue;
+    const unsigned blocks = static_cast<unsigned>((items + kThreads - 1) / kThreads);
+    scatter_level_kernel<T><<<blocks, kThreads, 0, stream>>>(
+        x, b, rows + g[3], cols + g[2], vals + g[2], diag + g[3], xl, K, Rp, m, ldx, ldb);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    scatter_rows_kernel<T><<<blocks, kThreads, 0, stream>>>(x, xl, rows + g[3], n, Rp, m, ldx);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
 }  // namespace
+
+extern "C" int sptrsv_level_scatter_f32(float* x, const float* b, const int* rows,
+                                        const int* cols, const float* vals,
+                                        const float* diag, float* xl,
+                                        const long long* tab, int nstep, int n, int m,
+                                        long long ldx, long long ldb,
+                                        cudaStream_t stream) {
+  return level_scatter<float>(x, b, rows, cols, vals, diag, xl, tab, nstep, n, m,
+                              ldx, ldb, stream);
+}
+
+extern "C" int sptrsv_level_scatter_f64(double* x, const double* b, const int* rows,
+                                        const int* cols, const double* vals,
+                                        const double* diag, double* xl,
+                                        const long long* tab, int nstep, int n, int m,
+                                        long long ldx, long long ldb,
+                                        cudaStream_t stream) {
+  return level_scatter<double>(x, b, rows, cols, vals, diag, xl, tab, nstep, n, m,
+                               ldx, ldb, stream);
+}
 
 extern "C" int sptrsv_level_walk_f32(float* x, const float* bhat,
                                      const int* cols, const float* vals,

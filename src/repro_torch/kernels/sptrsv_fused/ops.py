@@ -7,7 +7,9 @@ package's fused layout).  :func:`fused_solve` runs the whole solve: the
 CUDA kernel for tensors on the card (for a single RHS a walk of the
 layout's :class:`~.table.FusedTable`, each row waiting only for the rows
 it reads; for a batch a cooperative grid over every SM with a barrier per
-span), the plain chunk walk for tensors on the CPU.
+span), the plain chunk walk for tensors on the CPU.  :func:`make_solver` is
+the scatter layout's form (``layout="scatter"``): the same layout and
+kernels, with the values fixed at build.
 
 Direction-agnostic: backward (transpose) schedules permute rows by reverse
 level order, so every dependency position still precedes its consumer.
@@ -27,7 +29,8 @@ from . import cuda
 from .ref import fused_solve_ref
 from .table import FusedTable, fused_table
 
-__all__ = ["FusedLayout", "build_layout", "fused_solve", "make_packed_solver"]
+__all__ = ["FusedLayout", "build_layout", "fused_solve", "make_packed_solver",
+           "make_solver"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,3 +157,17 @@ def make_packed_solver(schedule: Schedule, *, device="cuda", chunk: int = 512):
 
     solve.table = table
     return solve, values0, repack, lay
+
+
+def make_solver(schedule: Schedule, *, device="cuda", chunk: int = 512):
+    """Scatter-layout fused solve ``solve(b)``: the layout and kernels of
+    :func:`make_packed_solver` with the values fixed at build (the JAX
+    package embeds them in the traced program).  ``solve.table`` is the
+    single-RHS walk's table."""
+    fn, values, _, _ = make_packed_solver(schedule, device=device, chunk=chunk)
+
+    def solve(b: torch.Tensor) -> torch.Tensor:
+        return fn(b, values)
+
+    solve.table = fn.table
+    return solve

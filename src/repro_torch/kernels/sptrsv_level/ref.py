@@ -3,9 +3,9 @@ in ordinary tensor ops.  The wrapper in :mod:`.ops` runs them for tensors on
 the CPU; on the card they are the yardstick the kernel is held against."""
 from __future__ import annotations
 
-from .table import LevelTable
+from .table import LevelTable, ScatterTable
 
-__all__ = ["level_solve_ref", "level_walk_ref"]
+__all__ = ["level_solve_ref", "level_walk_ref", "level_scatter_ref"]
 
 
 def level_solve_ref(x_pad, bl, cols, vals, diag):
@@ -31,3 +31,20 @@ def level_walk_ref(x, bhat, cols, vals, diag, table: LevelTable) -> None:
         x[o: o + Rp] = level_solve_ref(
             x, bhat[o: o + Rp], cols[vo: vo + K * Rp].view(K, Rp),
             vals[vo: vo + K * Rp].view(K, Rp), diag[do: do + Rp])
+
+
+def level_scatter_ref(x, b_ext, rows, cols, vals, diag,
+                      table: ScatterTable) -> None:
+    """A scatter solve's steps in place into ``x`` (``(n_pad[, m])``, the
+    scratch slot at ``n``): every step ``(K, R_pad, val_off, diag_off)`` of
+    ``table`` gathers ``bl = b_ext[rows]``, runs :func:`level_solve_ref`,
+    stores ``x[rows] = xl`` and resets ``x[n] = 0`` — what
+    :func:`repro_torch.kernels.sptrsv_level.cuda.level_scatter` does on the
+    card, one launch per step.  ``rows`` and ``cols`` are int64."""
+    for K, Rp, vo, do in table.host.tolist():
+        r = rows[do: do + Rp]
+        xl = level_solve_ref(x, b_ext.index_select(0, r),
+                             cols[vo: vo + K * Rp].view(K, Rp),
+                             vals[vo: vo + K * Rp].view(K, Rp), diag[do: do + Rp])
+        x.index_copy_(0, r, xl)
+        x[table.n] = 0

@@ -1,6 +1,7 @@
 """The segment table of a level walk: what
 :func:`repro_torch.kernels.sptrsv_level.ops.level_solve` reads besides the
-value buffers, built once per solver."""
+value buffers, built once per solver; and the step table of the scatter
+layout's solve (:func:`repro_torch.kernels.sptrsv_level.ops.make_solver`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,7 +10,8 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["LevelTable", "make_level_table", "GEOMETRY", "WIDE_K"]
+__all__ = ["LevelTable", "make_level_table", "GEOMETRY", "WIDE_K",
+           "ScatterTable", "make_scatter_table", "SCATTER_GEOMETRY"]
 
 # the columns of a table row
 GEOMETRY = ("o", "K", "R_pad", "val_off", "diag_off", "depth", "sub_off")
@@ -101,3 +103,40 @@ def make_level_table(geometry: np.ndarray, sub_offs: np.ndarray,
     return LevelTable(host=host, sub_offs=sub_offs,
                       sub_offs_dev=torch.from_numpy(sub_offs).to(dev),
                       row_len=torch.from_numpy(row_len).to(dev), need=need)
+
+
+# the columns of a scatter step
+SCATTER_GEOMETRY = ("K", "R_pad", "val_off", "diag_off")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ScatterTable:
+    """One row ``(K, R_pad, val_off, diag_off)`` per wavefront of a scatter
+    solve, in execution order (a coarsened chain's sub-steps one by one):
+    the step reads the ``(K, R_pad)`` column and value slabs at
+    ``val_off``, its row ids and diagonal at ``diag_off``, solves into
+    ``x[rows]`` and stores 0 in the scratch slot ``x[n]``.  ``need`` holds
+    the least length of each buffer the table reaches (``vals`` and
+    ``cols``, ``diag`` and ``rows``) and ``xl``, the widest step's rows."""
+
+    host: np.ndarray              # (S, 4) int64, C-contiguous
+    n: int
+    need: dict
+
+    @property
+    def num_steps(self) -> int:
+        return self.host.shape[0]
+
+
+def make_scatter_table(geometry: np.ndarray, n: int) -> ScatterTable:
+    """The table of scatter steps ``geometry`` (``(S, 4)``, the columns of
+    :data:`SCATTER_GEOMETRY`) of a system of ``n`` rows.  Raises
+    ``ValueError`` on a negative entry."""
+    host = np.ascontiguousarray(geometry, dtype=np.int64).reshape(-1, 4)
+    if (host < 0).any():
+        raise ValueError("scatter step table has a negative entry")
+    K, Rp, voff, doff = host.T
+    need = {"vals": int((voff + K * Rp).max()) if host.size else 0,
+            "diag": int((doff + Rp).max()) if host.size else 0,
+            "xl": int(Rp.max()) if host.size else 0}
+    return ScatterTable(host=host, n=int(n), need=need)

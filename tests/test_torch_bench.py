@@ -3,7 +3,13 @@
 (``benchmarks/common.py``) record for record, and small runs of
 ``fig6_levels`` / ``exp1_codegen`` / ``exp2_rewrite`` (``full_scale=False``)
 and ``serve_bench`` (``smoke=True``) produce their records, with the
-references' assertions inside them."""
+references' assertions inside them; and the eight CI benches
+(``refresh``, ``batch_solve``, ``coarsen``, ``blocked``, ``sweep``,
+``guard``, ``preconditioner``, ``rewrite_planner``) and ``calibrate
+--bench-json`` give the committed ``BENCH_*.json`` record names, with the
+references' answer and structural gates held (their speed gates were set
+on a CPU host and are computed, not held: ``refresh``'s ">= 10x over a
+cold build" does not hold for the port, whose build compiles nothing)."""
 import importlib.util
 import json
 from pathlib import Path
@@ -14,6 +20,9 @@ import torch
 
 from repro_torch.bench import common, exp1_codegen, exp2_rewrite, fig6_levels
 from repro_torch.bench import serve_bench
+from repro_torch.bench import (batch_solve, blocked, calibrate, coarsen, guard,
+                               preconditioner, refresh, rewrite_planner, sweep)
+from repro_torch.sparse import lung2_like
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -139,3 +148,111 @@ def test_serve_bench_smoke(tmp_path):
 def test_serve_bench_requires_a_known_device():
     with pytest.raises(ValueError):
         serve_bench.run(smoke=True, device="tpu")
+
+
+def _names(path):
+    return {(r["name"], r["metric"])
+            for r in json.loads(Path(path).read_text())["records"]}
+
+
+def _held(gates, kinds=("answer", "structural", "plan")):
+    """The gates' kinds are known, and the ones of ``kinds`` are met."""
+    assert gates and all(g.kind in common.GATE_KINDS for g in gates)
+    common.hold(gates, kinds)
+    return {g.name: g for g in gates}
+
+
+# bench -> (measure options of a quick CPU run, gate kinds held there): the
+# smoke sizes where they take seconds; blocked and rewrite_planner smaller
+# (their planner decisions depend on the size, so only answers and
+# structure are held there)
+BENCHES = {
+    "refresh": (refresh, dict(smoke=True), ("answer", "structural")),
+    "batch_solve": (batch_solve, dict(dry_run=True), ()),
+    "coarsen": (coarsen, dict(smoke=True), ("answer", "structural", "plan")),
+    "blocked": (blocked, dict(smoke=True, n=1024, lung2=lung2_like(
+        scale=0.02, fat_levels=4, thin_run=6, dtype=np.float32)),
+                ("answer", "structural")),
+    "sweep": (sweep, dict(smoke=True), ("answer", "structural", "plan")),
+    "guard": (guard, dict(smoke=True), ("answer", "structural", "plan")),
+    "preconditioner": (preconditioner, dict(dry_run=True), ("answer",)),
+    "rewrite_planner": (rewrite_planner, dict(
+        smoke=True, lung2_scale=0.25,
+        planner_sizes=dict(lung2=0.05, chain=500, random=500, banded=400)),
+                        ("answer", "structural")),
+}
+REFERENCE_FILE = {"batch_solve": "BENCH_batch_solve.json"}
+
+
+@pytest.mark.parametrize("name", sorted(BENCHES))
+def test_ci_bench_records_and_gates(tmp_path, name):
+    mod, kw, kinds = BENCHES[name]
+    results = mod.measure(device="cpu", **kw)
+    gates = mod.gates(results)
+    if kinds:
+        _held(gates, kinds)
+    path = tmp_path / f"BENCH_{name}_cpu.json"
+    mod.write_json(str(path), results, "cpu")
+    recs = json.loads(path.read_text())["records"]
+    assert all(r["backend"] == "cpu" for r in recs)
+    ref = ROOT / REFERENCE_FILE.get(name, f"BENCH_{name}.json")
+    if ref.exists():
+        got, want = _names(path), _names(ref)
+        if name == "rewrite_planner":
+            # the planner's priced candidates depend on the (smaller) sizes
+            got = {k for k in got if not k[0].endswith(".costs")}
+            want = {k for k in want if not k[0].endswith(".costs")}
+        assert got == want
+    else:  # the reference writes no JSON: the emitted numbers, under precond
+        assert {n.split(".")[0] for n, _ in _names(path)} == {"precond"}
+        assert {"max_rel_diff", "shared_ms", "legacy_ms"} <= {m for _, m in _names(path)}
+
+
+def test_refresh_gates_hold_the_scatter_twin_and_report_speed():
+    res = refresh.measure(smoke=True, device="cpu", L=lung2_like(
+        scale=0.02, fat_levels=4, thin_run=6, dtype=np.float32))
+    assert set(res["strategies"]) == {"levelset", "levelset_unroll", "serial"}
+    for row in res["strategies"].values():
+        assert row["scatter"]["err"] < 1e-5 and row["permuted"]["err"] < 1e-5
+    gates = {g.name: g for g in refresh.gates(res)}
+    assert gates["serial.refresh_err"].kind == "answer"
+    assert gates["levelset.refresh_speedup"].kind == "speed"
+    assert gates["levelset.refresh_speedup"].threshold == ">= 10"
+    broken = dict(res, strategies={"levelset": dict(
+        res["strategies"]["levelset"], refresh_err=1.0)})
+    with pytest.raises(AssertionError, match="levelset"):
+        common.hold(refresh.gates(broken), ("answer",))
+
+
+def test_bench_run_holds_the_reference_assertions(tmp_path):
+    """``run(smoke=True)`` measures, then holds every gate as the
+    reference's CLI does, and writes the JSON."""
+    res = coarsen.run(smoke=True, device="cpu", json_path=str(tmp_path / "c.json"))
+    assert res["segment_reduction"] >= 4.0
+    assert _names(tmp_path / "c.json") == _names(ROOT / "BENCH_coarsen.json")
+    bad = dict(res, segment_reduction=2.0)
+    with pytest.raises(AssertionError, match="segment reduction 2.0x < 4x"):
+        common.hold(coarsen.gates(bad))
+    with pytest.raises(ValueError):
+        common.Gate("x", "vibes", True, 1, "")
+
+
+def test_calibrate_bench_json(tmp_path):
+    """``calibrate --bench-json``: the measured row under its backend's name
+    and the raw gather rate and launch time, as the JAX bench writes them
+    (the JAX calibration row's fields; the committed file predates
+    ``mixed_gather_discount``)."""
+    from repro.core.calibrate import BackendCalibration as JaxRow
+    import dataclasses
+
+    path = tmp_path / "BENCH_calibrate.json"
+    assert calibrate.main(["--device", "cpu", "--smoke", "--bench-json",
+                           str(path)]) == 0
+    want = {("calibrate.cpu", f.name) for f in dataclasses.fields(JaxRow)}
+    want |= {("calibrate", "gather_gflops"), ("calibrate", "launch_us")}
+    assert _names(path) == want
+    assert _names(ROOT / "BENCH_calibrate.json") <= want
+    recs = {(r["name"], r["metric"]): r for r in
+            json.loads(path.read_text())["records"]}
+    assert recs["calibrate.cpu", "source"]["value"] == "measured"
+    assert recs["calibrate.cpu", "gather_cost"]["value"] == 1.0

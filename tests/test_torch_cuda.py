@@ -1,6 +1,7 @@
 """The CUDA kernels on the card: each held against its plain torch version
 on the same CUDA tensors; the solver's kernel strategies, with and without
-equation rewriting, against the plain ``levelset`` executor; the
+equation rewriting, against the plain ``levelset`` executor; the scatter
+layout's level step and its blocked solve's block applies on a path; the
 blocked solve against a dense solve; and the LM's prefill on the card
 against the same model on the CPU.  Marked ``cuda``: they skip where no GPU is
 visible, and run on a machine with one via
@@ -910,3 +911,99 @@ def test_registry_background_build_promotes_on_card(card):
     assert entry.state == "ready"
     assert np.abs(warm.x - cold.x).max() / np.abs(cold.x).max() <= 1e-10
     assert reg.wait_idle(timeout=120)
+
+
+# -- the scatter layout (layout="scatter") ------------------------------------
+@pytest.mark.parametrize("m", [1, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("coarsen", [False, True])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_level_scatter_kernel_matches_plain(card, transpose, coarsen, dtype, m):
+    """The scatter layout's level step (``sptrsv_level_scatter``) over a
+    whole lung2 schedule, chains sub-step by sub-step, against its plain
+    version: one launch per wavefront."""
+    from repro_torch.kernels.sptrsv_level.ops import make_solver
+    from repro_torch.kernels.sptrsv_level.ref import level_scatter_ref
+
+    L = lung2_like(scale=0.05, fat_levels=8)
+    if transpose:
+        s = build_schedule(L.transpose(), build_reverse_level_sets(L), upper=True)
+    else:
+        s = build_schedule(L, build_level_sets(L))
+    if coarsen:
+        s = coarsen_schedule(s)
+    fn = make_solver(s, device=card)
+    rows, cols, vals, diag = fn.buffers
+    vals, diag = vals.to(dtype), diag.to(dtype)
+    rng = np.random.default_rng(11)
+    tail = () if m == 1 else (m,)
+    b_ext = torch.from_numpy(rng.standard_normal((L.n + 1,) + tail)).to(card, dtype)
+    b_ext[L.n] = 0
+    xk = torch.zeros((fn.n_pad,) + tail, dtype=dtype, device=card)
+    xr = xk.clone()
+    name = "sptrsv_level_scatter" + ("" if m == 1 else "_batched")
+    before = level_cuda.launches[name]
+    level_cuda.level_scatter(xk, b_ext, rows, cols, vals, diag, fn.table)
+    level_scatter_ref(xr, b_ext, rows.long(), cols.long(), vals, diag, fn.table)
+    torch.cuda.synchronize()
+    assert level_cuda.launches[name] - before == fn.table.num_steps == s.total_depth
+    assert torch.isfinite(xk).all()
+    assert _rel(xk, xr) <= KERNEL_TOL[dtype]
+    assert float(xk[L.n].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("strategy", ["serial", "levelset", "levelset_unroll",
+                                      "pallas_level", "pallas_fused", "sweep",
+                                      "blocked", "auto"])
+@pytest.mark.parametrize("kw", [{}, dict(coarsen=True),
+                                dict(rewrite=RewriteConfig())])
+def test_scatter_solver_on_card_matches_permuted(card, strategy, kw):
+    L = lung2_like(scale=0.02, fat_levels=4)
+    rng = np.random.default_rng(12)
+    for m in (1, 3):
+        b = torch.from_numpy(rng.standard_normal((L.n,) if m == 1 else (L.n, m))).to(card)
+        for s, p in zip(SpTRSV.build_pair(L, device=card, strategy=strategy,
+                                          layout="scatter", **kw),
+                        SpTRSV.build_pair(L, device=card, strategy="levelset", **kw)):
+            assert s.layout == "scatter"
+            tol = 1e-8 if kw.get("rewrite") or s.strategy == "sweep" else 1e-12
+            assert _rel(s.solve(b), p.solve(b)) <= tol
+
+
+@pytest.mark.parametrize("m", [1, 32])
+def test_scatter_blocked_runs_the_block_apply_per_super_level(card, m):
+    """The scatter layout's blocked solve: one panel SpMV and one
+    ``trsm_block_apply`` launch per super-level, against a dense solve."""
+    L = banded_lower(600, bandwidth=24, fill=1.0)
+    dense = L.to_dense()
+    rhs = np.random.default_rng(13).standard_normal((L.n,) if m == 1 else (L.n, m))
+    sfx = "" if m == 1 else "_batched"
+    for s, A in zip(SpTRSV.build_pair(L, device=card, strategy="blocked",
+                                      layout="scatter"), (dense, dense.T)):
+        trsm_cuda.reset_launches()
+        spmv_cuda.reset_launches()
+        x = s.solve(torch.from_numpy(rhs).to(card)).cpu().numpy()
+        segs = s.stats()["segments"]
+        assert trsm_cuda.launches == {**{k: 0 for k in trsm_cuda.launches},
+                                      f"trsm_block_apply{sfx}": segs}
+        assert spmv_cuda.launches[f"spmv_ell{sfx}"] == segs
+        np.testing.assert_allclose(x, np.linalg.solve(A, rhs), rtol=1e-12,
+                                   atol=1e-12)
+        seg = s.block_schedule.slabs[0]
+        d = torch.from_numpy(seg.dinv).to(card)
+        r = torch.from_numpy(np.random.default_rng(14).standard_normal(
+            (seg.B, seg.T) if m == 1 else (seg.B, seg.T, m))).to(card)
+        assert _rel(trsm_cuda.block_apply(d, r), block_apply_ref(d, r)) <= 1e-12
+
+
+def test_scatter_refresh_on_card_rebuilds(card):
+    L = lung2_like(scale=0.02, fat_levels=4)
+    new = refresh_values(L, seed=2)
+    s = SpTRSV.build(L, device=card, strategy="pallas_level", layout="scatter",
+                     coarsen=True)
+    s.refresh(new)
+    fresh = SpTRSV.build(CSRMatrix(L.indptr, L.indices, new, L.shape), device=card,
+                         strategy="pallas_level", layout="scatter", coarsen=True)
+    b = torch.from_numpy(np.random.default_rng(15).standard_normal(L.n)).to(card)
+    assert torch.equal(s.solve(b), fresh.solve(b))
+    assert not s.stats()["refreshable_in_place"]

@@ -26,7 +26,11 @@ CHECK = (
     "repro_torch.serve.registry, repro_torch.serve.service, "
     "repro_torch.serve.metrics, repro_torch.bench.common, "
     "repro_torch.bench.serve_bench, repro_torch.bench.fig6_levels, "
-    "repro_torch.bench.exp1_codegen, repro_torch.bench.exp2_rewrite, sys; "
+    "repro_torch.bench.exp1_codegen, repro_torch.bench.exp2_rewrite, "
+    "repro_torch.bench.refresh, repro_torch.bench.batch_solve, "
+    "repro_torch.bench.coarsen, repro_torch.bench.blocked, "
+    "repro_torch.bench.sweep, repro_torch.bench.guard, "
+    "repro_torch.bench.preconditioner, repro_torch.bench.rewrite_planner, sys; "
     "from repro_torch.serve import (ServeEngine, Request, SolveEngine, "
     "SolveRequest, SolverRegistry, SolverEntry, pattern_key, SolveService, "
     "TenantState, LatencyHistogram); "

@@ -192,7 +192,7 @@ def test_refresh_rejects_other_patterns():
 
 UNPORTED = {
     "distributed": dict(strategy="distributed"),
-    "mesh=": dict(mesh="data"), "scatter": dict(layout="scatter"),
+    "mesh=": dict(mesh="data"),
 }
 # options that raised until the port had them: they build and solve now
 PORTED = {
@@ -200,6 +200,7 @@ PORTED = {
     "levelset_unroll": dict(strategy="levelset_unroll"),
     "auto": dict(strategy="auto"), "sweep": dict(strategy="sweep"),
     "guard=": dict(guard=True), "sweep=": dict(strategy="sweep", sweep=True),
+    "scatter": dict(layout="scatter"),
 }
 
 
