@@ -108,6 +108,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
       speed gates printed as met or not, each writing
       ``bench_out/BENCH_<name>_cuda.json``, and phase 3e's calibration row
       as ``BENCH_calibrate_cuda.json``;
+   h. ``strategy="distributed"`` on a world of one NCCL rank (NCCL refuses
+      two ranks on one card; the CPU tests run 2 and 4 gloo ranks) on lung2
+      (f64): both layouts x ``all_gather``/``psum`` x plain, rewritten and
+      coarsened, m in {1, 32}, both directions: backward error, agreement
+      with ``levelset``, ``psum`` equal to ``all_gather``, the collectives
+      per solve equal to ``num_collectives`` (493 plain forward, 58
+      rewritten), ms per solve beside ``levelset`` and the difference per
+      collective, a permuted refresh, and ``bench/dist_solve.py``
+      (``bench_out/BENCH_dist_solve_cuda.json``); then the linear
+      recurrence at RecurrentGemma-2B's RG-LRU width, ``(1, 2048, 2560)``
+      along ``axis=1``, ``scan`` and ``doubling`` in f32 and f64 against an
+      f64 host loop, ``sptrsv`` at T = 512 over 2 lanes, and the chain
+      matrix at T = 512 (512 levels, 2 after the rewrite);
 4. CUDA-event times per solve and per kernel (median and range of three
    batches; a solve slower than the batch budget is timed once), beside
    each kernel's bound, its plain version and a library call, and the
@@ -236,6 +249,20 @@ SCATTER_TIMED = ("levelset", "pallas_level", "pallas_level+coarsen",
                  "pallas_fused")
 SCATTER_SERIAL_SCALE = 0.3
 SCATTER_BUDGET_MS = 50.0
+# phase 3h: the distributed solve on a world of one NCCL rank on lung2
+# (f64): each case (tag, options), the forward collectives expected per
+# solve (493 plain, 58 rewritten; a coarsened chain adds none), the batch
+# budget of its times; then the recurrence at RecurrentGemma-2B's RG-LRU
+# width (d_rnn 2,560) over a 2,048-step sequence, the literal SpTRSV
+# pipeline at T = 512 over 2 lanes, and the chain matrix at T = 512
+DIST_CASES = (("plain", {}), ("rewrite", dict(rewrite=True)),
+              ("coarsen", dict(coarsen=True)))
+DIST_FORWARD_COLLECTIVES = {"plain": 493, "rewrite": 58}
+DIST_BUDGET_MS = 50.0
+DIST_PROBE_ROWS = 4096
+RECURRENCE_SHAPE = (1, 2048, 2560)
+RECURRENCE_TOL = {"float64": 1e-12, "float32": 1e-5}
+RECURRENCE_SPTRSV = (512, 2)
 # prefill logits, card (bf16 weights and activations, the kernel) against
 # the CPU (f32, the plain versions) through two full-width layers: bf16
 # rounding, at the JAX package's bf16 attention tolerance
@@ -1388,6 +1415,233 @@ def scatter_phase(torch, dev, rng, L, band, solvers, rw_solvers, scipy_csr,
             "times": times, "gates": gates, "keep": keep}
 
 
+def distributed_phase(torch, dev, rng, L, scipy_csr, reset_counts,
+                      counts) -> dict:
+    """Phase 3h: (a) ``strategy="distributed"`` on a world of one NCCL rank
+    (``make_mesh((1,), ("data",))``: a ``FileStore`` in a temporary
+    directory, bound to ``cuda:0``) over lung2 (f64): both layouts x
+    ``all_gather``/``psum`` x plain/rewrite/coarsen, forward and
+    transpose, m in WIDTHS; each answer's backward error against the
+    factor (scipy CSR), agreement with the ``levelset`` solve of the same
+    transform and layout, ``psum`` equal to ``all_gather``, the collectives
+    per solve equal to ``num_collectives`` (493 plain forward, 58
+    rewritten); ms per solve beside the ``levelset`` solve's and the
+    difference per collective; one permuted refresh; then
+    ``bench/dist_solve.py`` on the same mesh, writing
+    ``bench_out/BENCH_dist_solve_cuda.json``.  (b) the linear recurrence:
+    ``scan`` and ``doubling`` at ``RECURRENCE_SHAPE`` along ``axis=1`` in
+    f32 and f64 against an f64 host loop, ms each; ``sptrsv`` at
+    ``RECURRENCE_SPTRSV``; the chain's levels before and after the
+    rewrite.  Returns the launches of (a), counted over the distributed
+    solves alone (not the ``levelset`` baselines, the timing loops or the
+    bench), and of (b), and the times."""
+    import gc
+
+    import torch.distributed as pg
+
+    from repro_torch.bench import dist_solve
+    from repro_torch.core import CSRMatrix, RewriteConfig, SpTRSV
+    from repro_torch.core import dist as tdist
+    from repro_torch.core.levels import build_level_sets
+    from repro_torch.core.recurrence import (linear_recurrence,
+                                             recurrence_as_sptrsv)
+    from repro_torch.core.rewrite import rewrite_matrix
+    from repro_torch.launch.mesh import destroy_process_group, make_mesh
+    from repro_torch.sparse import refresh_values
+
+    t0 = time.perf_counter()
+    dt = "float64"
+    A = scipy_csr(L)
+    rhs = {m: rng.standard_normal((L.n,) if m == 1 else (L.n, m)) for m in WIDTHS}
+    dev_rhs = {m: torch.from_numpy(b).to(dev) for m, b in rhs.items()}
+    times, dist_launches = {}, {}
+
+    def solve_counted(s, b):
+        # one distributed solve, its launches added to dist_launches
+        reset_counts()
+        x = s.solve(b)
+        torch.cuda.synchronize()
+        for k, v in counts().items():
+            dist_launches[k] = dist_launches.get(k, 0) + v
+        return x
+
+    mesh = make_mesh((1,), ("data",), device=dev)
+    try:
+        print(f"phase 3h: {mesh}, backend {pg.get_backend(mesh.get_group('data'))}")
+        for tag, kw in DIST_CASES:
+            kw = dict(kw)
+            if kw.pop("rewrite", False):
+                kw["rewrite"] = RewriteConfig()
+            for layout in ("permuted", "scatter"):
+                t1 = time.perf_counter()
+                base = SpTRSV.build_pair(L, device=dev, layout=layout,
+                                         strategy="levelset", **kw)
+                pairs = {ds: SpTRSV.build_pair(
+                    L, device=dev, layout=layout, strategy="distributed",
+                    mesh=mesh, dist_strategy=ds, **kw)
+                    for ds in tdist.DIST_STRATEGIES}
+                built = time.perf_counter() - t1
+                for tr in (False, True):
+                    want = sum(sl.depth == 1 for sl in
+                               pairs["all_gather"][tr].schedule.slabs)
+                    if not tr and tag in DIST_FORWARD_COLLECTIVES:
+                        check(want == DIST_FORWARD_COLLECTIVES[tag],
+                              f"distributed {tag}: {want} sharded segments, "
+                              f"expected {DIST_FORWARD_COLLECTIVES[tag]}")
+                    for m, b in dev_rhs.items():
+                        ref = base[tr].solve(b)
+                        base_ms = time_ms(torch, lambda: base[tr].solve(b),
+                                          warm=False, budget_ms=DIST_BUDGET_MS)
+                        got = {}
+                        for ds, pair in pairs.items():
+                            s = pair[tr]
+                            tdist.reset_collectives()
+                            x = solve_counted(s, b)
+                            coll = dict(tdist.collectives)
+                            xn = x.cpu().numpy()
+                            res = residual(A[tr], xn, rhs[m])
+                            agree = rel_err(x, ref)
+                            check(x.device == b.device and x.shape == b.shape
+                                  and np.isfinite(xn).all(),
+                                  f"distributed {tag} {layout} {ds}: bad output")
+                            check(res <= RESIDUAL_TOL[dt],
+                                  f"distributed {tag} {layout} {ds} m={m} "
+                                  f"T={int(tr)}: residual {res:.3e}")
+                            check(agree <= KERNEL_TOL[dt],
+                                  f"distributed {tag} {layout} {ds} m={m} "
+                                  f"T={int(tr)}: vs levelset {agree:.3e}")
+                            check(coll == {**{k: 0 for k in coll}, ds: want},
+                                  f"distributed {tag} {layout} {ds} m={m} "
+                                  f"T={int(tr)}: collectives {coll}, "
+                                  f"num_collectives {want}")
+                            got[ds] = x
+                            ms = time_ms(torch, lambda: s.solve(b), warm=False,
+                                         budget_ms=DIST_BUDGET_MS)
+                            per = ((ms[0] - base_ms[0]) / want * 1e3
+                                   if want else float("nan"))
+                            times[tag, layout, ds, m, tr] = (ms[0], base_ms[0],
+                                                            want, per)
+                            print(f"phase 3h: distributed {tag:7s} {layout:8s} "
+                                  f"{ds:10s} f64 m={m:2d} transpose={int(tr)}: "
+                                  f"{coll[ds]} collectives (num_collectives "
+                                  f"{want}), residual {res:.2e}, vs levelset "
+                                  f"{agree:.2e}; {fmt_ms(ms)} per solve, "
+                                  f"levelset {fmt_ms(base_ms)}, "
+                                  f"{per:.3f} us per collective")
+                        check(torch.equal(got["psum"], got["all_gather"]),
+                              f"distributed {tag} {layout} m={m} T={int(tr)}: "
+                              "psum and all_gather answers differ")
+                print(f"phase 3h: distributed {tag} {layout} pairs built in "
+                      f"{built:.2f} s")
+                if tag == "plain" and layout == "permuted":
+                    # refresh: new values copied into the same buffers
+                    s = pairs["all_gather"][0]
+                    ptrs = [v.data_ptr() for v in s._values]
+                    new = refresh_values(L, seed=1)
+                    t1 = time.perf_counter()
+                    s.refresh(new)
+                    took = time.perf_counter() - t1
+                    b = dev_rhs[WIDTHS[-1]]
+                    x = solve_counted(s, b).cpu().numpy()
+                    An = scipy_csr(L, new)[False]
+                    res = residual(An, x, rhs[WIDTHS[-1]])
+                    check(res <= RESIDUAL_TOL[dt]
+                          and [v.data_ptr() for v in s._values] == ptrs,
+                          f"distributed refresh: residual {res:.3e}")
+                    print(f"phase 3h: distributed permuted refresh in "
+                          f"{took:.3f} s, value buffers in place, residual "
+                          f"against the new factor {res:.2e}")
+                del base, pairs
+                gc.collect()
+                torch.cuda.empty_cache()
+        print(f"phase 3h: distributed path in {time.perf_counter() - t0:.1f} s; "
+              f"launches in its solves {json.dumps(dist_launches)}")
+        # one bare collective of each exchange, off the solve: a value
+        # all_gather of the widest forward wavefront's width and the psum's
+        # all_reduce of the full vector (what a barrier costs here)
+        group = mesh.get_group("data")
+        gather = tdist.all_gather_tensor
+        wide = torch.zeros(DIST_PROBE_ROWS, dtype=torch.float64, device=dev)
+        wide_out = torch.empty_like(wide)
+        full = torch.zeros(L.n + 1, dtype=torch.float64, device=dev)
+        for what, fn in ((f"all_gather of {DIST_PROBE_ROWS} f64",
+                          lambda: gather(wide_out, wide, group=group)),
+                         (f"all_reduce of {L.n + 1} f64",
+                          lambda: pg.all_reduce(full, group=group))):
+            ms = time_ms(torch, fn)
+            print(f"phase 3h: a bare {what}: {fmt_ms(ms)} per call; "
+                  + device_busy(torch, fn, reps=20))
+        t1 = time.perf_counter()
+        out_dir = ROOT / "bench_out"
+        out_dir.mkdir(exist_ok=True)
+        bench = dist_solve.measure(mesh, device=dev)
+        dist_solve.write_json(str(out_dir / "BENCH_dist_solve_cuda.json"),
+                              bench, dev)
+        print(f"phase 3h: bench dist_solve (lung2_like(0.25) n={bench['_n']}) "
+              f"in {time.perf_counter() - t1:.1f} s: "
+              + json.dumps({f"{label}.{strat}": v for label in ("base", "rewrite")
+                            for strat, v in bench[label].items()}))
+    finally:
+        destroy_process_group()
+
+    # (b) the linear recurrence
+    reset_counts()
+    t_rec = t1 = time.perf_counter()
+    a64 = rng.uniform(0.2, 0.99, RECURRENCE_SHAPE)
+    u64 = rng.standard_normal(RECURRENCE_SHAPE)
+    want = np.zeros_like(u64)
+    acc = np.zeros((RECURRENCE_SHAPE[0], RECURRENCE_SHAPE[2]))
+    for t in range(RECURRENCE_SHAPE[1]):
+        acc = a64[:, t] * acc + u64[:, t]
+        want[:, t] = acc
+    host_s = time.perf_counter() - t1
+    want_t = torch.from_numpy(want).to(dev)
+    for name in ("float32", "float64"):
+        tdt = getattr(torch, name)
+        a = torch.from_numpy(a64).to(dev, tdt)
+        u = torch.from_numpy(u64).to(dev, tdt)
+        for method in ("scan", "doubling"):
+            h = linear_recurrence(a, u, method=method, axis=1)
+            torch.cuda.synchronize()
+            err = rel_err(h.double(), want_t)
+            check(h.device == u.device and h.dtype == tdt and h.shape == u.shape
+                  and err <= RECURRENCE_TOL[name],
+                  f"recurrence {method} {name}: {err:.3e}")
+            ms = time_ms(torch, lambda: linear_recurrence(a, u, method=method,
+                                                          axis=1))
+            times["recurrence", method, name] = ms[0]
+            print(f"phase 3h: recurrence {method:8s} {name} "
+                  f"{RECURRENCE_SHAPE} axis=1: {fmt_ms(ms)}, vs the f64 "
+                  f"host loop ({host_s:.2f} s) {err:.2e}")
+    T, D = RECURRENCE_SPTRSV
+    a_s = torch.from_numpy(a64[0, :T, :D].copy()).to(dev)
+    u_s = torch.from_numpy(u64[0, :T, :D].copy()).to(dev)
+    t1 = time.perf_counter()
+    h = linear_recurrence(a_s, u_s, method="sptrsv")
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t1
+    err = rel_err(h, want_t[0, :T, :D])
+    check(h.device == u_s.device and err <= RECURRENCE_TOL["float64"],
+          f"recurrence sptrsv T={T} D={D}: {err:.3e}")
+    print(f"phase 3h: recurrence sptrsv T={T} D={D} f64 (build, rewrite and "
+          f"solve per lane): {took:.2f} s, vs the f64 host loop {err:.2e}")
+    C = recurrence_as_sptrsv(a64[0, :T, 0])
+    lv = build_level_sets(C)
+    res = rewrite_matrix(C, lv, RewriteConfig(thin_threshold=1, max_row_nnz=T + 1,
+                                              max_fill_ratio=float(T)))
+    check((lv.num_levels, res.levels.num_levels) == (T, 2),
+          f"chain T={T}: {lv.num_levels} -> {res.levels.num_levels} levels")
+    print(f"phase 3h: chain matrix T={T}: {lv.num_levels} levels -> "
+          f"{res.levels.num_levels} after the rewrite; {res.stats.summary()}")
+    torch.cuda.synchronize()
+    rec_launches = counts()
+    print(f"phase 3h: recurrence in {time.perf_counter() - t_rec:.1f} s; "
+          f"launches {json.dumps(rec_launches)}")
+    print(f"phase 3h: in {time.perf_counter() - t0:.1f} s")
+    return {"distributed": dist_launches, "recurrence": rec_launches,
+            "times": times}
+
+
 def main() -> int:
     import torch
 
@@ -2062,6 +2316,12 @@ def main() -> int:
                  "spmv_ell_batched", "sptrsv_fused", "sptrsv_fused_batched"):
         check(sc["scatter"][name] > 0,
               f"{name} never launched on the scatter path")
+    # 3h: the distributed solve on one NCCL rank, and the recurrence
+    dp = distributed_phase(torch, dev, rng, L64, scipy_csr, reset_counts, counts)
+    path_launches["distributed"] = dp["distributed"]
+    path_launches["recurrence"] = dp["recurrence"]
+    check(dp["distributed"]["spmv_ell"] > 0 and dp["distributed"]["spmv_ell_batched"] > 0,
+          "the rewritten distributed solves never launched b' = E b")
     main_launches = {name: sum(p[name] for p in path_launches.values())
                      for name in KERNELS}
     for name in KERNELS:

@@ -26,6 +26,14 @@ Strategies (each in ``layout="permuted"``, the default, or
                     a synchronisation-free walk in which each row waits
                     only for the rows it reads, for a batch a cooperative
                     grid with a barrier per wavefront span
+``distributed``     the level solve split over the ranks of one mesh
+                    dimension (:mod:`repro_torch.core.dist`,
+                    ``mesh=make_mesh((ndev,), ("data",))``): each segment's
+                    rows are sharded and one collective per segment
+                    (``dist_strategy="all_gather"`` or ``"psum"``)
+                    exchanges the solved values; coarsened chains run on
+                    every rank with none.  SPMD: every rank builds the same
+                    solver and calls ``solve`` with the same ``b``
 ``blocked``         supernodal: the whole solve as one CUDA launch that
                     walks every super-level's panel update and batched
                     dense diagonal-block apply in order
@@ -52,8 +60,7 @@ breakdown policy; ``precision="mixed"`` stores bf16 off-diagonal values).
 :meth:`SpTRSV.build_cold` builds the cheapest exact pair (``serial``).
 
 On ``device="cpu"`` the kernel strategies run their kernels' plain torch
-versions.  ``strategy="distributed"`` and ``mesh=`` raise
-``NotImplementedError`` naming their ROADMAP item.
+versions, and ``distributed`` needs a gloo mesh; on the card an NCCL one.
 
 ``layout="permuted"`` runs the solve in schedule-order permuted space with
 the values in persistent device tensors: :meth:`SpTRSV.refresh` re-packs
@@ -86,6 +93,9 @@ from .codegen import (Schedule, build_schedule, make_blocked_solver,
                       make_levelset_solver, make_rhs_transform,
                       make_serial_solver)
 from .csr import CSRMatrix
+from .dist import (axis_size, build_packed_dist_layout,
+                   make_distributed_solver, make_packed_distributed_solver,
+                   shard_schedule)
 from .guard import GuardConfig, SolveGuard, scan_values
 from .levels import (LevelSets, SupernodeConfig, Supernodes, build_level_sets,
                      build_reverse_level_sets, detect_supernodes)
@@ -105,16 +115,8 @@ __all__ = ["SpTRSV", "STRATEGIES", "LAYOUTS"]
 logger = logging.getLogger(__name__)
 
 STRATEGIES = ("serial", "levelset", "levelset_unroll", "pallas_level",
-              "pallas_fused", "sweep", "blocked", "auto")
+              "pallas_fused", "distributed", "sweep", "blocked", "auto")
 LAYOUTS = ("permuted", "scatter")
-
-# What the JAX package offers and the port does not yet: ROADMAP queue A.
-_UNPORTED_STRATEGIES = {"distributed": "A10"}
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP {item})")
 
 
 def _as_coarsen_config(coarsen) -> Optional[CoarsenConfig]:
@@ -175,22 +177,24 @@ def _build_options(*, strategy: str = "levelset", unroll_threshold: int = 4,
                    bucket_pad_ratio: float = 0.0, coarsen=None,
                    layout: str = "permuted", device="cuda", rewrite=None,
                    guard=None, sweep=None, supernodes=None,
-                   block_kernel: str = "auto", mesh=None) -> dict:
+                   block_kernel: str = "auto", mesh=None,
+                   mesh_axis: str = "data",
+                   dist_strategy: str = "all_gather") -> dict:
     """Check the options of :meth:`SpTRSV.build` / :meth:`SpTRSV.build_pair`
-    and return the keyword arguments of ``SpTRSV._build_system``.  Options
-    of the JAX package that are not ported raise ``NotImplementedError``
-    naming their ROADMAP item; unknown or ill-typed values raise
-    ``ValueError`` / ``TypeError``.  ``coarsen``, ``sweep`` and
+    and return the keyword arguments of ``SpTRSV._build_system``.  Unknown
+    or ill-typed values raise ``ValueError`` / ``TypeError``, and so does
+    ``strategy="distributed"`` without a mesh (its mesh, axis and
+    ``dist_strategy`` are checked where the solver is built,
+    :mod:`repro_torch.core.dist`).  ``coarsen``, ``sweep`` and
     ``supernodes`` pass through as given, because ``False`` differs from
     ``None`` for the ``auto`` planner."""
-    if strategy in _UNPORTED_STRATEGIES:
-        _not_ported(f"strategy={strategy!r}", _UNPORTED_STRATEGIES[strategy])
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; ported: {STRATEGIES}")
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}; ported: {LAYOUTS}")
-    if mesh is not None:
-        _not_ported("mesh=", "A10")
+    if strategy == "distributed" and mesh is None:
+        raise ValueError("strategy='distributed' needs a mesh "
+                         "(repro_torch.launch.mesh.make_mesh)")
     if block_kernel != "auto":
         # the JAX option picks Pallas or dot_general; the port always runs
         # the kernel on the card and its plain version on the CPU
@@ -204,7 +208,8 @@ def _build_options(*, strategy: str = "levelset", unroll_threshold: int = 4,
                 layout=layout,
                 rewrite=_as_rewrite_config(rewrite),
                 guard=_as_guard_config(guard), sweep=sweep,
-                supernodes=supernodes, device=resolve_device(device))
+                supernodes=supernodes, device=resolve_device(device), mesh=mesh,
+                mesh_axis=mesh_axis, dist_strategy=dist_strategy)
 
 
 @dataclasses.dataclass
@@ -282,8 +287,11 @@ class SpTRSV:
         coarsening cost model's), ``bucket_pad_ratio`` (> 1 splits levels
         into nnz buckets) and ``layout`` (``"permuted"``, the default, or
         ``"scatter"``: see the module docstring; ``guard`` with
-        ``precision="mixed"`` needs ``"permuted"``).  ``mesh`` is not
-        ported yet and raises ``NotImplementedError``."""
+        ``precision="mixed"`` needs ``"permuted"``).  ``distributed`` takes
+        ``mesh`` (a :class:`~torch.distributed.device_mesh.DeviceMesh` on
+        ``device``'s type), ``mesh_axis`` (the dimension to shard over,
+        default ``"data"``) and ``dist_strategy`` (``"all_gather"``, the
+        default, or ``"psum"``); other strategies ignore them."""
         opts = _build_options(**options)
         if not L.is_lower_triangular():
             raise ValueError("SpTRSV requires lower-triangular L with nonzero diagonal")
@@ -347,6 +355,9 @@ class SpTRSV:
         source: CSRMatrix,
         values_map: Optional[np.ndarray],
         layout: str = "permuted",
+        mesh=None,
+        mesh_axis: str = "data",
+        dist_strategy: str = "all_gather",
     ) -> "SpTRSV":
         """``system`` is the triangular matrix actually solved (``L``
         forward, ``L.transpose()`` backward) with its level sets analyzed;
@@ -358,7 +369,8 @@ class SpTRSV:
             upper=upper, strategy=strategy, unroll_threshold=unroll_threshold,
             bucket_pad_ratio=bucket_pad_ratio, coarsen=coarsen,
             rewrite=rewrite, guard=guard, sweep=sweep, supernodes=supernodes,
-            device=device, layout=layout)
+            device=device, layout=layout, mesh=mesh, mesh_axis=mesh_axis,
+            dist_strategy=dist_strategy)
         if guard is not None and guard.precision == "mixed" \
                 and layout != "permuted":
             raise ValueError(
@@ -549,6 +561,19 @@ class SpTRSV:
                 )
             else:
                 fn = fused_ops.make_solver(schedule, device=device)
+        elif strategy == "distributed":
+            schedule = _maybe_coarsen(_schedule())
+            ndev = axis_size(mesh, mesh_axis)
+            if permuted:
+                playout = build_packed_dist_layout(schedule, ndev)
+                fn, values, repack = make_packed_distributed_solver(
+                    playout, mesh, mesh_axis, strategy=dist_strategy,
+                    device=device)
+                packed_stats = playout.stats()
+            else:
+                fn = make_distributed_solver(
+                    shard_schedule(schedule, ndev), mesh, mesh_axis,
+                    strategy=dist_strategy, device=device)
         elif strategy == "blocked":
             block_schedule = _block_schedule()
             if permuted:

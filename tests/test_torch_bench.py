@@ -9,7 +9,9 @@ references' assertions inside them; and the eight CI benches
 --bench-json`` give the committed ``BENCH_*.json`` record names, with the
 references' answer and structural gates held (their speed gates were set
 on a CPU host and are computed, not held: ``refresh``'s ">= 10x over a
-cold build" does not hold for the port, whose build compiles nothing)."""
+cold build" does not hold for the port, whose build compiles nothing);
+and ``dist_solve`` on a world of one gives the JAX bench's record names and
+its 8-way counts."""
 import importlib.util
 import json
 from pathlib import Path
@@ -19,7 +21,7 @@ import pytest
 import torch
 
 from repro_torch.bench import common, exp1_codegen, exp2_rewrite, fig6_levels
-from repro_torch.bench import serve_bench
+from repro_torch.bench import dist_solve, serve_bench
 from repro_torch.bench import (batch_solve, blocked, calibrate, coarsen, guard,
                                preconditioner, refresh, rewrite_planner, sweep)
 from repro_torch.sparse import lung2_like
@@ -256,3 +258,40 @@ def test_calibrate_bench_json(tmp_path):
             json.loads(path.read_text())["records"]}
     assert recs["calibrate.cpu", "source"]["value"] == "measured"
     assert recs["calibrate.cpu", "gather_cost"]["value"] == 1.0
+
+
+def test_dist_solve_records_and_8way_counts(tmp_path):
+    """``bench/dist_solve.py`` on a world of one (gloo): the JAX bench's
+    record names, and its 8-way ``levels`` / ``bytes`` equal to
+    ``repro.core.dist.shard_schedule`` on the same (rewritten) matrix."""
+    import repro.core.codegen as j_codegen
+    import repro.core.dist as j_dist
+    import repro.sparse as jsparse
+    from repro.core.levels import build_level_sets as j_build_level_sets
+    from repro.core.rewrite import RewriteConfig as JaxRewriteConfig
+    from repro.core.rewrite import rewrite_matrix as j_rewrite_matrix
+
+    path = tmp_path / "BENCH_dist_solve_cpu.json"
+    results = dist_solve.run(full_scale=False, json_path=str(path),
+                             device="cpu")
+    recs = json.loads(path.read_text())["records"]
+    assert {f"{r['name']}.{r['metric']}" for r in recs} == {
+        f"dist.{label}.{strat}.{metric}" for label in ("base", "rewrite")
+        for strat in ("psum", "all_gather")
+        for metric in ("levels", "bytes", "ms")}
+    assert {r["backend"] for r in recs} == {"cpu"}
+    L = jsparse.lung2_like(scale=0.05, dtype=np.float32)
+    assert (results["_n"], results["_nnz"]) == (L.n, L.nnz)
+    targets = {"base": L, "rewrite": j_rewrite_matrix(
+        L, j_build_level_sets(L), JaxRewriteConfig(thin_threshold=2)).L}
+    for label, target in targets.items():
+        d = j_dist.shard_schedule(j_codegen.build_schedule(target), 8)
+        for strat in ("psum", "all_gather"):
+            got = results[label][strat]
+            assert got["levels"] == d.num_levels
+            assert got["bytes"] == d.collective_bytes(4, strat)
+            assert got["ms"] > 0
+            issued, planned = results["_collectives"][label, strat]
+            assert issued == planned == d.num_collectives
+    assert results["rewrite"]["all_gather"]["levels"] < \
+        results["base"]["all_gather"]["levels"]

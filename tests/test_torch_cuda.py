@@ -1007,3 +1007,47 @@ def test_scatter_refresh_on_card_rebuilds(card):
     b = torch.from_numpy(np.random.default_rng(15).standard_normal(L.n)).to(card)
     assert torch.equal(s.solve(b), fresh.solve(b))
     assert not s.stats()["refreshable_in_place"]
+
+
+@pytest.mark.parametrize("layout", ["permuted", "scatter"])
+def test_distributed_world_of_one_on_card(card, layout):
+    """``strategy="distributed"`` on a world of one NCCL rank: the answers
+    of both exchanges equal the ``levelset`` solve, one collective per
+    sharded segment."""
+    from repro_torch.core import dist as tdist
+    from repro_torch.launch.mesh import destroy_process_group, make_mesh
+
+    mesh = make_mesh((1,), ("data",))
+    try:
+        L = lung2_like(scale=0.02, fat_levels=4)
+        B = torch.from_numpy(np.random.default_rng(0).standard_normal((L.n, 3))).to(card)
+        for kw in ({}, dict(coarsen=True), dict(rewrite=RewriteConfig())):
+            ref = SpTRSV.build_pair(L, strategy="levelset", **kw)
+            for ds in tdist.DIST_STRATEGIES:
+                pair = SpTRSV.build_pair(L, strategy="distributed", mesh=mesh,
+                                         dist_strategy=ds, layout=layout, **kw)
+                for s, r in zip(pair, ref):
+                    for b in (B[:, 0].contiguous(), B):
+                        tdist.reset_collectives()
+                        x = s.solve(b)
+                        assert x.is_cuda
+                        assert tdist.collectives[ds] == sum(
+                            sl.depth == 1 for sl in s.schedule.slabs)
+                        assert _rel(x, r.solve(b)) <= KERNEL_TOL[torch.float64]
+    finally:
+        destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_doubling_recurrence_on_card(card, dtype):
+    from repro_torch.core.recurrence import linear_recurrence
+
+    rng = np.random.default_rng(1)
+    a = torch.from_numpy(rng.uniform(0.2, 0.99, (2, 300, 64))).to(card, dtype)
+    u = torch.from_numpy(rng.normal(size=(2, 300, 64))).to(card, dtype)
+    h = linear_recurrence(a, u, method="doubling", axis=1)
+    want = linear_recurrence(a.cpu().double(), u.cpu().double(),
+                             method="scan", axis=1)
+    assert h.is_cuda and h.dtype == dtype
+    assert _rel(h.cpu().double(), want) <= (1e-5 if dtype == torch.float32
+                                            else 1e-12)

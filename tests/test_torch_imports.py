@@ -30,7 +30,9 @@ CHECK = (
     "repro_torch.bench.refresh, repro_torch.bench.batch_solve, "
     "repro_torch.bench.coarsen, repro_torch.bench.blocked, "
     "repro_torch.bench.sweep, repro_torch.bench.guard, "
-    "repro_torch.bench.preconditioner, repro_torch.bench.rewrite_planner, sys; "
+    "repro_torch.bench.preconditioner, repro_torch.bench.rewrite_planner, "
+    "repro_torch.core.recurrence, repro_torch.core.dist, "
+    "repro_torch.launch.mesh, repro_torch.bench.dist_solve, sys; "
     "from repro_torch.serve import (ServeEngine, Request, SolveEngine, "
     "SolveRequest, SolverRegistry, SolverEntry, pattern_key, SolveService, "
     "TenantState, LatencyHistogram); "

@@ -54,6 +54,9 @@ JAX_OPTIONS = {"pallas_level": dict(backend="interpret"),
                "blocked": dict(block_kernel="jnp")}
 TRANSFORMS = {"rewrite": dict(rewrite=RewriteConfig()),
               "coarsen": dict(coarsen=True)}
+# every strategy but ``distributed``, which needs a process group
+# (tests/test_torch_dist.py runs it in both layouts)
+LOCAL_STRATEGIES = tuple(s for s in STRATEGIES if s != "distributed")
 # the rewrite changes the arithmetic (the JAX package's rewrite tolerance)
 RW_TOL = {np.float32: dict(rtol=1e-4, atol=1e-4),
           np.float64: dict(rtol=1e-8, atol=1e-8)}
@@ -97,7 +100,7 @@ def _port_pair(L, **kw):
     return SpTRSV.build_pair(to_port(L), layout="scatter", device="cpu", **kw)
 
 
-@pytest.mark.parametrize("strategy", STRATEGIES)
+@pytest.mark.parametrize("strategy", LOCAL_STRATEGIES)
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_scatter_matches_jax(dtype, strategy):
     L = _lung2(dtype)
@@ -119,7 +122,7 @@ def test_scatter_matches_jax(dtype, strategy):
 
 
 @pytest.mark.parametrize("transform", sorted(TRANSFORMS))
-@pytest.mark.parametrize("strategy", STRATEGIES)
+@pytest.mark.parametrize("strategy", LOCAL_STRATEGIES)
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_scatter_transforms_match_jax(dtype, strategy, transform):
     """With the rewrite or coarsening, every strategy against the JAX
@@ -355,7 +358,7 @@ def test_scatter_executor_pieces():
     # the block apply of the scatter blocked solve is block_apply
     assert make_block_apply() is block_apply
     before = (dict(level_cuda.launches), dict(trsm_cuda.launches))
-    for s in STRATEGIES:
+    for s in LOCAL_STRATEGIES:
         SpTRSV.build(L, strategy=s, layout="scatter", device="cpu").solve(b)
     assert (dict(level_cuda.launches), dict(trsm_cuda.launches)) == before
 

@@ -190,11 +190,9 @@ def test_refresh_rejects_other_patterns():
         s.refresh(other)
 
 
-UNPORTED = {
-    "distributed": dict(strategy="distributed"),
-    "mesh=": dict(mesh="data"),
-}
 # options that raised until the port had them: they build and solve now
+# (``strategy="distributed"`` and ``mesh=`` need a process group:
+# tests/test_torch_dist.py builds and solves them)
 PORTED = {
     "serial": dict(strategy="serial"),
     "levelset_unroll": dict(strategy="levelset_unroll"),
@@ -202,16 +200,6 @@ PORTED = {
     "guard=": dict(guard=True), "sweep=": dict(strategy="sweep", sweep=True),
     "scatter": dict(layout="scatter"),
 }
-
-
-@pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_unported_options_raise(name):
-    kw = UNPORTED[name]
-    L = to_port(jax_matrix("chain"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        SpTRSV.build(L, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        SpTRSV.build_pair(L, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("name", sorted(PORTED))
