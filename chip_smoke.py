@@ -8,7 +8,8 @@ same row count (``banded_lower(110592, bandwidth=24, fill=1.0)``, the JAX
 blocked benchmark's band) and on a band whose panels are too wide to
 stage (``banded_lower(8192, bandwidth=300, fill=1.0)``), and the LM
 serving path with granite-3-8b at full width and depth (40 layers, random
-weights from a seed).
+weights from a seed), then gemma3-1b, recurrentgemma-2b, gemma3-12b (12 of
+48 layers) and qwen1.5-32b (8 of 64 layers) at full width.
 
     python3 chip_smoke.py
 
@@ -33,7 +34,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (the cooperative grid) and a random layout of mixed block sizes; the
    SpMV on E with and without row lengths, and with v[0] = inf; flash
    attention in bf16/f32 at granite's prefill shape, a ragged
-   sliding-window case and each head-dim template 64/128/256);
+   sliding-window case, each head-dim template 64/128/256, and gemma3-1b's
+   and gemma3-12b's prefill shapes with the score softcap of 30, the
+   latter at head dim 240 under the 256 template);
 3. the paths, each with the launch counts zeroed just before and read just
    after, every kernel of the path launched:
    a. ``SpTRSV.build_pair`` for ``pallas_level``, ``pallas_level`` +
@@ -121,6 +124,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
       along ``axis=1``, ``scan`` and ``doubling`` in f32 and f64 against an
       f64 host loop, ``sptrsv`` at T = 512 over 2 lanes, and the chain
       matrix at T = 512 (512 levels, 2 after the rewrite);
+   i. the second LM slice's families at full width, random bf16 weights
+      from seed 0, each served as granite in d (4 slots, a 2,048-token
+      cache, 8 prompts of 512-2,048 tokens, the last 2,048, 16 new tokens):
+      gemma3-1b (26 layers, 5:1 local:global, softcap), recurrentgemma-2b
+      (26 layers, RG-LRU on ``doubling`` and local attention), gemma3-12b
+      (12 of 48 layers) and qwen1.5-32b (8 of 64 layers, QKV bias, int8 KV
+      cache): every request done, finite logits, one flash launch per
+      attention layer and prefill, the local rings wrapped, qwen's cache
+      int8 with f32 scales; the first pattern repetition of gemma3-1b (6
+      layers, a 1,100-token prompt), recurrentgemma-2b (3 layers, 512) and
+      qwen1.5-32b (2 layers, 512) on the card (bf16, the kernel) against
+      the same weights on the CPU (the plain versions): the prefill's and 2
+      decode steps' logits within 2e-2 of the CPU's bf16, and no further
+      from the CPU's f32 than 1.25 times the CPU's bf16 is; then the
+      launcher with no argument (gemma3-1b);
 4. CUDA-event times per solve and per kernel (median and range of three
    batches; a solve slower than the batch budget is timed once), beside
    each kernel's bound, its plain version and a library call, and the
@@ -136,7 +154,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    share of a blocked solve, of the coarsened ``pallas_level`` solve and of
    a ``pallas_fused`` solve each way; for the LM, prefill ms per request, decode ms
    per step beside its weight-read bound, and the device's busy share of a
-   decode step; the scatter level step on lung2's widest wavefront, and
+   decode step (granite; each model of 3i, the busy share for
+   recurrentgemma-2b), and the flash kernel at gemma3-12b's prefill shape
+   with and without its softcap; the scatter level step on lung2's widest wavefront, and
    the block applies of one scatter blocked band solve beside
    ``torch.bmm``.
 
@@ -197,20 +217,23 @@ LM_ARCH = "granite-3-8b"
 LM_SLOTS, LM_S_CACHE, LM_REQUESTS, LM_MAX_NEW = 4, 2048, 8, 16
 LM_PROMPT_LEN = (512, 2048)          # drawn from a seed, both ends included
 LM_TIMED_PROMPTS = (512, 2048)
-LM_CPU_LAYERS, LM_CPU_PROMPT = 2, 512
 # flash attention against its plain version: both sum in f32, in another
 # order; bf16 outputs may then round one bf16 step apart (2e-2, as the JAX
 # package's tests/test_flash_kernel.py)
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
-# (B, S, Hq, Hkv, hd, window) of the phase-2 flash checks; the first is
-# granite's prefill attention at the longest prompt, and is timed; the
-# bf16 kernel has a template per head dim 64 / 128 / 256
-FLASH_CASES = {"granite prefill": (1, 2048, 32, 8, 128, 0),
-               "ragged window": (2, 200, 4, 4, 64, 128),
-               "hd=256": (1, 300, 4, 1, 256, 0),
-               "hd=64 GQA 8:1": (2, 1000, 8, 1, 64, 0),
-               "hd=128 ragged": (2, 65, 4, 4, 128, 0),
-               "hd=256 long": (1, 2048, 8, 2, 256, 0)}
+# (B, S, Hq, Hkv, hd, window, softcap) of the phase-2 flash checks; the
+# first is granite's prefill attention at the longest prompt, and is timed;
+# the bf16 kernel has a template per head dim 64 / 128 / 256; the last two
+# are gemma3's prefill attention with its score softcap (gemma3-12b's head
+# dim 240 runs under the 256 template), and the 12b one is timed too
+FLASH_CASES = {"granite prefill": (1, 2048, 32, 8, 128, 0, 0.0),
+               "ragged window": (2, 200, 4, 4, 64, 128, 0.0),
+               "hd=256": (1, 300, 4, 1, 256, 0, 0.0),
+               "hd=64 GQA 8:1": (2, 1000, 8, 1, 64, 0, 0.0),
+               "hd=128 ragged": (2, 65, 4, 4, 128, 0, 0.0),
+               "hd=256 long": (1, 2048, 8, 2, 256, 0, 0.0),
+               "gemma3-1b prefill": (1, 2048, 4, 1, 256, 1024, 30.0),
+               "gemma3-12b prefill": (1, 2048, 16, 8, 240, 0, 30.0)}
 # both fused solves on a chain in phase 2: one row per span, so one
 # dependent hop of the walk and one grid barrier of the batched grid per row
 CHAIN_N = 1000
@@ -263,10 +286,31 @@ DIST_PROBE_ROWS = 4096
 RECURRENCE_SHAPE = (1, 2048, 2560)
 RECURRENCE_TOL = {"float64": 1e-12, "float32": 1e-5}
 RECURRENCE_SPTRSV = (512, 2)
-# prefill logits, card (bf16 weights and activations, the kernel) against
-# the CPU (f32, the plain versions) through two full-width layers: bf16
-# rounding, at the JAX package's bf16 attention tolerance
+# The served LM models: granite-3-8b in phase 3d, the second LM slice's
+# families in phase 3i, each served alike (the same slots, cache, request
+# count and prompt lengths, the last prompt 2,048 tokens so that
+# RecurrentGemma's ring of 2,048 wraps in decode).  Each arch: (layers
+# served, None for all; layers of the card-vs-CPU check, its first pattern
+# repetition, 0 for none; that check's prompt; the check's limit against
+# the CPU's f32).  Depth cuts: qwen1.5-32b's 64 layers are 68.8 GB of bf16
+# weights on an 80 GB card; gemma3-12b runs two pattern repetitions for
+# the time limit.
+#
+# The card-vs-CPU check runs the prefill and LM_CPU_STEPS decode steps on
+# the card (bf16, the kernel) and on the CPU (the plain versions) in bf16
+# and f32, with the same weights.  Against the CPU's bf16 the card is held
+# within LM_CPU_TOL, the JAX package's bf16 attention tolerance.  Against
+# the CPU's f32 it is held within the arch's limit: LM_CPU_TOL, but 4e-2
+# for gemma3-1b's 6 layers at 1,100 tokens, where the JAX package's own
+# bf16 logits are 2.5e-2 to 3.1e-2 from its f32 ones
+# (tests/test_torch_lm_bf16_gap.py, at this configuration).
 LM_CPU_TOL = 2e-2
+LM_MODELS = {"granite-3-8b": (None, 2, 512, LM_CPU_TOL),
+             "gemma3-1b": (None, 6, 1100, 4e-2),
+             "recurrentgemma-2b": (None, 3, 512, LM_CPU_TOL),
+             "gemma3-12b": (12, 0, 0, None),
+             "qwen1.5-32b": (8, 2, 512, LM_CPU_TOL)}
+LM_CPU_STEPS = 2
 # H100 SXM data sheet: dense bf16 tensor-core rate (the attention bound)
 BF16_TENSOR_FLOPS = 989e12
 
@@ -492,25 +536,33 @@ def tree_to(tree, dev, dtype):
 def flash_checks(torch, dev, rng, record, flash_cuda, gqa_attention_ref) -> None:
     """Phase 2 for flash attention: the kernel against its plain version on
     the same CUDA tensors, causal, bf16 and f32."""
-    for what, (B, S, Hq, Hkv, hd, window) in FLASH_CASES.items():
+    for what, (B, S, Hq, Hkv, hd, window, cap) in FLASH_CASES.items():
         for dt in ("bfloat16", "float32"):
             q, k, v = (torch.from_numpy(rng.standard_normal(
                 (B, S, H, hd), dtype=np.float32)).to(dev, getattr(torch, dt))
                 for H in (Hq, Hkv, Hkv))
-            got = flash_cuda.flash_attn(q, k, v, causal=True, window=window)
-            want = gqa_attention_ref(q, k, v, causal=True, window=window)
+            kw = dict(causal=True, window=window, softcap=cap)
+            got = flash_cuda.flash_attn(q, k, v, **kw)
+            want = gqa_attention_ref(q, k, v, **kw)
             record("flash_attn", dt, got.float(), want.float(),
                    f"{what} B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} "
-                   f"window={window}", tol=FLASH_TOL[dt])
+                   f"window={window} softcap={cap:g}", tol=FLASH_TOL[dt])
 
 
-def lm_serve(torch, cfg, model, params, reset_counts, counts):
-    """Phase 3d: ``ServeEngine`` over LM_REQUESTS prompts with the launch
-    counts zeroed just before the run and read just after."""
+def attn_layers(cfg) -> int:
+    """The layers of ``cfg`` that run the flash kernel in prefill."""
+    return sum(kind.startswith("attn") for kind in cfg.kinds())
+
+
+def lm_serve(torch, cfg, model, params, reset_counts, counts, *, phase):
+    """Phases 3d and 3i: ``ServeEngine`` over LM_REQUESTS prompts, the last
+    one of the longest length, with the launch counts zeroed just before
+    the run and read just after.  Returns the counts and the engine."""
     from repro_torch.serve.engine import Request, ServeEngine
 
-    prompt_rng = np.random.default_rng(13)
+    prompt_rng = np.random.default_rng(15)
     lens = prompt_rng.integers(LM_PROMPT_LEN[0], LM_PROMPT_LEN[1] + 1, LM_REQUESTS)
+    lens[-1] = LM_PROMPT_LEN[1]
     reqs = [Request(i, prompt_rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32),
                     max_new=LM_MAX_NEW) for i, n in enumerate(lens)]
     eng = ServeEngine(model, params, batch_slots=LM_SLOTS, s_cache=LM_S_CACHE)
@@ -536,7 +588,7 @@ def lm_serve(torch, cfg, model, params, reset_counts, counts):
     wall = time.perf_counter() - t0
     launches = counts()
     toks = sum(len(r.out) for r in reqs)
-    print(f"phase 3d: ServeEngine({LM_ARCH}, {LM_SLOTS} slots, s_cache="
+    print(f"phase {phase}: ServeEngine({cfg.name}, {LM_SLOTS} slots, s_cache="
           f"{LM_S_CACHE}): prompts {sorted(int(n) for n in lens)}; "
           f"{sum(r.done for r in reqs)}/{len(reqs)} requests, {toks} tokens, "
           f"{eng.prefills} prefills, {eng.steps} decode steps in {wall:.2f} s "
@@ -545,123 +597,242 @@ def lm_serve(torch, cfg, model, params, reset_counts, counts):
           "a request did not finish with max_new tokens")
     check(eng.prefills == LM_REQUESTS, f"{eng.prefills} prefills")
     check(bool(torch.stack(finite).all()), "non-finite logits on the LM path")
-    check(launches["flash_attn"] == cfg.num_layers * eng.prefills,
+    check(launches["flash_attn"] == attn_layers(cfg) * eng.prefills,
           f"flash_attn launched {launches['flash_attn']} times, expected "
-          f"{cfg.num_layers} x {eng.prefills} prefills")
-    return launches
+          f"{attn_layers(cfg)} x {eng.prefills} prefills")
+    return launches, eng
 
 
-def lm_launcher(torch, cfg, reset_counts, counts) -> None:
-    """Phase 3d: the launcher with its own defaults (16 short requests, 4
-    slots, a 128-token cache)."""
+def lm_launcher(torch, cfg, reset_counts, counts, argv, phase) -> None:
+    """Phases 3i and 4d: the launcher with ``argv`` and its own defaults
+    (16 short requests, 4 slots, a 128-token cache), serving ``cfg``."""
     from repro_torch.launch import serve as launch_serve
 
     reset_counts()
-    reqs = launch_serve.main(["--arch", LM_ARCH])
+    reqs = launch_serve.main(argv)
     torch.cuda.synchronize()
     n = counts()["flash_attn"]
     check(all(r.done for r in reqs), "launcher: a request did not finish")
-    check(n == cfg.num_layers * len(reqs), f"launcher: flash_attn launched {n} times")
-    print(f"phase 3d: launcher: {len(reqs)} requests done, flash_attn "
-          f"launched {n} times")
+    check(n == attn_layers(cfg) * len(reqs),
+          f"launcher: flash_attn launched {n} times, expected "
+          f"{attn_layers(cfg)} x {len(reqs)}")
+    print(f"phase {phase}: launcher {argv} ({cfg.name}): {len(reqs)} requests "
+          f"done, flash_attn launched {n} times")
 
 
-def lm_cpu_check(torch, dev, cfg, flash_cuda) -> None:
-    """Phase 3d: LM_CPU_LAYERS full-width layers on the card (bf16, the
-    kernel) against the same weights on the CPU (f32, plain versions):
-    prefill logits of one LM_CPU_PROMPT-token prompt."""
+def lm_cpu_check(torch, dev, cfg, params, n_layers, prompt, f32_tol, flash_cuda,
+                 phase) -> None:
+    """Phases 3d and 3i: the first ``n_layers`` of a served model on the
+    card (bf16, the kernel) against the same weights on the CPU, in bf16
+    and in f32 (the plain versions): logits of a ``prompt``-token prefill
+    and LM_CPU_STEPS decode steps, the cache ``prompt + LM_CPU_STEPS`` long.
+    The card is held within LM_CPU_TOL of the CPU's bf16 and within
+    ``f32_tol`` of its f32."""
     import dataclasses
 
     from repro_torch.models.model import Model
 
     t0 = time.perf_counter()
-    short = dataclasses.replace(cfg, num_layers=LM_CPU_LAYERS)
-    cpu = Model(dataclasses.replace(short, dtype="float32"), device="cpu")
-    p_cpu = cpu.init(torch.Generator().manual_seed(1))
-    card = Model(short, device=dev)
-    p_card = tree_to(p_cpu, dev, torch.bfloat16)
-    toks = torch.from_numpy(np.random.default_rng(14).integers(
-        0, cfg.vocab_size, (1, LM_CPU_PROMPT)))
-    want, _ = cpu.prefill(p_cpu, toks, LM_CPU_PROMPT)
-    before = flash_cuda.launches["flash_attn"]
-    got, cache = card.prefill(p_card, toks.to(dev), LM_CPU_PROMPT)
+    short = dataclasses.replace(cfg, num_layers=n_layers)
+    sub = {"embed": params["embed"], "final_ln": params["final_ln"],
+           "layers": params["layers"][:n_layers]}
+    models = {"card": (Model(short, device=dev), sub),
+              "cpu bf16": (Model(short, device="cpu"),
+                           tree_to(sub, "cpu", torch.bfloat16)),
+              "cpu f32": (Model(dataclasses.replace(short, dtype="float32"),
+                                device="cpu"), tree_to(sub, "cpu", torch.float32))}
+    tok_rng = np.random.default_rng(16)
+    toks = torch.from_numpy(tok_rng.integers(0, cfg.vocab_size, (1, prompt)))
+    nxt = torch.from_numpy(tok_rng.integers(0, cfg.vocab_size, (LM_CPU_STEPS, 1, 1)))
+    s_cache = prompt + LM_CPU_STEPS
+    logits = {}
+    for what, (model, p) in models.items():
+        before = flash_cuda.launches["flash_attn"]
+        out, cache = model.prefill(p, toks.to(model.device), s_cache)
+        steps = [out.float().cpu()]
+        if what == "card":
+            torch.cuda.synchronize()
+            check(flash_cuda.launches["flash_attn"] - before == attn_layers(short),
+                  f"{cfg.name}: card prefill did not run the flash kernel once "
+                  "per attention layer")
+        for t in nxt:
+            out, cache = model.decode_step(p, t.to(model.device), cache)
+            steps.append(out.float().cpu())
+        logits[what] = steps
+    check(all(bool(torch.isfinite(x).all()) for x in logits["card"]),
+          f"{cfg.name}: non-finite card logits")
+
+    def errs(a, b):
+        return [rel_err(x, y) for x, y in zip(logits[a], logits[b])]
+
+    same, gap = errs("card", "cpu bf16"), errs("card", "cpu f32")
+    check(max(same) <= LM_CPU_TOL,
+          f"{cfg.name}: card vs CPU bf16 logits rel err {max(same):.3e}")
+    check(max(gap) <= f32_tol,
+          f"{cfg.name}: card bf16 vs CPU f32 logits rel err {max(gap):.3e}")
+
+    def fmt(e):
+        return ", ".join(f"{x:.3e}" for x in e)
+
+    print(f"phase {phase}: {cfg.name}: {n_layers} full-width layers "
+          f"{short.kinds()}, {prompt}-token prompt, logits of the prefill and "
+          f"{LM_CPU_STEPS} decode steps: card bf16 vs CPU bf16 max rel err "
+          f"{fmt(same)} (tol {LM_CPU_TOL:g}); card bf16 vs CPU f32 {fmt(gap)} "
+          f"(tol {f32_tol:g}); CPU bf16 vs CPU f32 "
+          f"{fmt(errs('cpu bf16', 'cpu f32'))}; in {time.perf_counter() - t0:.1f} s")
+
+
+def lm_family(torch, dev, rng, arch, reset_counts, counts, flash_cuda,
+              phase) -> dict:
+    """Phase 3d (granite) or 3i for one arch of LM_MODELS, random bf16
+    weights from seed 0: ``ServeEngine`` (every request done, finite
+    logits, one flash launch per attention layer and prefill); the local
+    layers' rings wrapped; an int8 cache with f32 scales; the first pattern
+    repetition on the card against the CPU; then phase 4d's times: prefill
+    ms per request, decode ms per step beside its weight-read bound and the
+    device's busy share of a decode step.  Returns the served run's launch
+    counts and the attention layers per prefill."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    depth, n_check, check_prompt, f32_tol = LM_MODELS[arch]
+    full = get_config(arch)
+    cfg = full if depth is None else dataclasses.replace(full, num_layers=depth)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
-    check(flash_cuda.launches["flash_attn"] - before == LM_CPU_LAYERS,
-          "card prefill did not run the flash kernel once per layer")
-    got = got.float().cpu()
-    check(bool(torch.isfinite(got).all()), "card prefill: non-finite logits")
-    err = rel_err(got, want)
-    check(err <= LM_CPU_TOL, f"card vs CPU prefill logits: rel err {err:.3e}")
-    print(f"phase 3d: {LM_CPU_LAYERS} full-width layers, {LM_CPU_PROMPT}-token "
-          f"prompt: card bf16 vs CPU f32 prefill logits max rel err {err:.3e} "
-          f"(tol {LM_CPU_TOL:g}); argmax {int(got.argmax())} vs "
-          f"{int(want.argmax())} ({time.perf_counter() - t0:.1f} s)")
-
-
-def lm_times(torch, dev, rng, cfg, model, params, flash_cuda, gqa_attention_ref):
-    """Phase 4d: the flash kernel at granite's prefill shape beside its
-    bound, its plain version and PyTorch's fused attention; prefill ms per
-    request; decode ms per step beside its weight-read bound; the device's
-    busy share of a decode step.  Returns ``(ms, plain_ms, bound, lib_ms)``
-    of the kernel."""
-    import torch.nn.functional as F
-
-    B, S, Hq, Hkv, hd, _ = FLASH_CASES["granite prefill"]
-    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, H, hd), dtype=np.float32))
-               .to(dev, torch.bfloat16) for H in (Hq, Hkv, Hkv))
-
-    def sdpa():
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        try:
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True)
-        except TypeError:       # a torch without enable_gqa
-            g = Hq // Hkv
-            return F.scaled_dot_product_attention(
-                qt, kt.repeat_interleave(g, 1), vt.repeat_interleave(g, 1),
-                is_causal=True)
-
-    ms = time_ms(torch, lambda: flash_cuda.flash_attn(q, k, v))
-    plain = time_ms(torch, lambda: gqa_attention_ref(q, k, v))
-    try:
-        lib = time_ms(torch, sdpa)
-        lib_err = rel_err(sdpa().transpose(1, 2).float(),
-                          flash_cuda.flash_attn(q, k, v).float())
-        lib_note = f"{fmt_ms(lib)} (vs kernel rel {lib_err:.2e})"
-        lib_ms = lib[0]
-    except (RuntimeError, NotImplementedError) as err:
-        lib_ms, lib_note = None, f"unavailable: {err}"
-    # live (query, key) pairs of causal attention; two products of hd MACs
-    flops = 4 * hd * Hq * B * (S * (S + 1) // 2)
-    nbytes = 2 * B * S * hd * (2 * Hq + 2 * Hkv)      # q, o, k, v in bf16
-    t_ops, t_bytes = flops / BF16_TENSOR_FLOPS, nbytes / HBM_BYTES_PER_S
-    bound = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
-    print(f"phase 4d: kernel flash_attn bf16 B={B} S={S} Hq={Hq} Hkv={Hkv} "
-          f"hd={hd} causal: {fmt_ms(ms)} per launch ({cfg.num_layers} launches "
-          f"per prefill), {flops / ms[0] / 1e9:.1f} TFLOP/s; plain {fmt_ms(plain)}; "
-          f"bound {bound[0]:.6f} ms ({bound[1]}: {flops / 1e9:.2f} GFLOP, "
-          f"{nbytes / 1e6:.1f} MB); scaled_dot_product_attention {lib_note}")
+    w_bytes = sum(x.numel() * x.element_size() for x in leaves(params))
+    print(f"phase {phase}: {arch}: {cfg.num_layers} of {full.num_layers} layers "
+          f"({cfg.block_pattern} repeated), d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, "
+          f"window {cfg.window}, softcap {cfg.logit_softcap:g}, QKV bias "
+          f"{cfg.qkv_bias}, {cfg.kv_cache_dtype} KV cache, vocab {cfg.vocab_size} "
+          f"(padded {cfg.vocab_pad}): {w_bytes / 1e9:.3f} GB of parameters on "
+          f"the card, random from seed 0, in {time.perf_counter() - t0:.1f} s")
+    launches, eng = lm_serve(torch, cfg, model, params, reset_counts, counts,
+                             phase=phase)
+    rings = [slot["k"].shape[1] for kind, slot in zip(model.kinds, eng.cache["layers"])
+             if kind == "attn_local"]
+    if rings:
+        check(eng.cache["idx"] > max(rings),
+              f"{arch}: the local rings of {max(rings)} slots never wrapped "
+              f"(position {eng.cache['idx']})")
+        print(f"phase {phase}: {arch}: {len(rings)} local rings of {max(rings)} "
+              f"slots wrapped: the engine ended at position {eng.cache['idx']}")
+    if cfg.kv_cache_dtype == "int8":
+        slot = eng.cache["layers"][0]
+        check(slot["k"].dtype == torch.int8 and slot["v"].dtype == torch.int8
+              and slot["scale"].dtype == torch.float32
+              and tuple(slot["scale"].shape) == (LM_SLOTS, LM_S_CACHE, cfg.n_kv_heads, 2),
+              f"{arch}: the KV cache is not int8 with f32 scales")
+        print(f"phase {phase}: {arch}: KV cache int8, scale "
+              f"{tuple(slot['scale'].shape)} f32")
+    del eng
+    if n_check:
+        lm_cpu_check(torch, dev, cfg, params, n_check, check_prompt, f32_tol,
+                     flash_cuda, phase)
 
     for n in LM_TIMED_PROMPTS:
         toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n))).to(dev)
         t = time_ms(torch, lambda: model.prefill(params, toks, LM_S_CACHE))
-        print(f"phase 4d: prefill {LM_ARCH} S={n}: {fmt_ms(t)} per request "
-              f"({n / t[0] * 1e3:.0f} tokens/s)")
-
+        print(f"phase 4d: prefill {arch} ({cfg.num_layers} layers) S={n}: "
+              f"{fmt_ms(t)} per request ({n / t[0] * 1e3:.0f} tokens/s)")
     cache = model.init_cache(LM_SLOTS, LM_S_CACHE)
     cache["idx"] = LM_S_CACHE // 2
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_SLOTS, 1))).to(dev)
     t = time_ms(torch, lambda: model.decode_step(params, toks, cache))
-    w_bytes = sum(x.numel() * x.element_size() for x in leaves(params))
-    kv_bytes = (2 * cfg.num_layers * LM_SLOTS * cache["idx"] * cfg.n_kv_heads
-                * cfg.hd * 2)
-    print(f"phase 4d: decode {LM_ARCH} {LM_SLOTS} slots at position "
-          f"~{cache['idx']}: {fmt_ms(t)} per step; weight-read bound "
+    # the cache entries a step reads: the live slots of each K/V ring or
+    # cache (and their scales), every recurrent state
+    live = sum(x.numel() * x.element_size() * min(LM_S_CACHE // 2 + 1, x.shape[1])
+               // x.shape[1] for slot in cache["layers"] for name, x in slot.items()
+               if name in ("k", "v", "scale"))
+    live += sum(x.numel() * x.element_size() for slot in cache["layers"]
+                for name, x in slot.items() if name in ("h", "conv"))
+    print(f"phase 4d: decode {arch} ({cfg.num_layers} layers) {LM_SLOTS} slots at "
+          f"position ~{LM_S_CACHE // 2}: {fmt_ms(t)} per step; weight-read bound "
           f"{w_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({w_bytes / 1e9:.3f} GB), "
-          f"with the live KV cache {(w_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3:.4f} ms")
-    print(f"phase 4d: profile decode step {LM_SLOTS} slots: "
+          f"with the live cache {(w_bytes + live) / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    print(f"phase 4d: profile decode step {arch} {LM_SLOTS} slots: "
           + device_busy(torch, lambda: model.decode_step(params, toks, cache)))
-    return ms, plain, bound, lib_ms
+    return {"launches": launches, "attn_layers": attn_layers(cfg)}
+
+
+def attention_library(torch, cap: float):
+    """``(name, fn(q, k, v))``: one PyTorch call that computes the flash
+    kernel's causal GQA attention on ``(B, S, H, hd)`` tensors.  Without a
+    softcap it is ``scaled_dot_product_attention``; with one (which that
+    call lacks) ``flex_attention`` with a ``cap * tanh(s / cap)`` score_mod
+    and a causal block mask, compiled by ``torch.compile`` (its first call
+    compiles; the mask is built once per sequence length)."""
+    import torch.nn.functional as F
+
+    def bhsd(*xs):
+        return (x.transpose(1, 2) for x in xs)
+
+    if cap <= 0.0:
+        return "scaled_dot_product_attention", lambda q, k, v: (
+            F.scaled_dot_product_attention(*bhsd(q, k, v), is_causal=True,
+                                           enable_gqa=True).transpose(1, 2))
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    flex = torch.compile(flex_attention, dynamic=False)
+    masks = {}
+
+    def capped(s, b, h, q_idx, kv_idx):
+        return cap * torch.tanh(s / cap)
+
+    def causal(b, h, q_idx, kv_idx):
+        return q_idx >= kv_idx
+
+    def run(q, k, v):
+        S = q.shape[1]
+        if S not in masks:
+            masks[S] = create_block_mask(causal, None, None, S, S, device=q.device)
+        return flex(*bhsd(q, k, v), score_mod=capped, block_mask=masks[S],
+                    enable_gqa=True).transpose(1, 2)
+
+    return "flex_attention", run
+
+
+def flash_times(torch, dev, rng, what, shape, flash_cuda, gqa_attention_ref) -> dict:
+    """Phase 4d: the flash kernel in bf16 at ``shape`` ``(B, S, Hq, Hkv, hd,
+    window, softcap)`` beside its bound, its plain version and, without a
+    window, :func:`attention_library`'s call, which is held against the
+    kernel at FLASH_TOL.  The bound is the larger of the live (query, key)
+    pairs' two products of ``hd`` MACs at the bf16 tensor rate and q, k, v
+    read and o written once at the HBM rate."""
+    B, S, Hq, Hkv, hd, window, cap = shape
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, H, hd), dtype=np.float32))
+               .to(dev, torch.bfloat16) for H in (Hq, Hkv, Hkv))
+    kw = dict(window=window, softcap=cap)
+    ms = time_ms(torch, lambda: flash_cuda.flash_attn(q, k, v, **kw))
+    plain = time_ms(torch, lambda: gqa_attention_ref(q, k, v, **kw))
+    lib_ms, lib_note = None, "n/a (a window)"
+    if not window:
+        name, fn = attention_library(torch, cap)
+        try:
+            lib = time_ms(torch, lambda: fn(q, k, v))
+            err = rel_err(fn(q, k, v).float(), flash_cuda.flash_attn(q, k, v, **kw).float())
+        except (RuntimeError, NotImplementedError, TypeError, ValueError) as exc:
+            lib_note = f"{name} unavailable: {type(exc).__name__}: {exc}"
+        else:
+            check(err <= FLASH_TOL["bfloat16"],
+                  f"flash {what}: {name} vs the kernel rel err {err:.3e}")
+            lib_ms, lib_note = lib[0], f"{name} {fmt_ms(lib)} (vs kernel rel {err:.2e})"
+    live = sum(min(i + 1, window) if window else i + 1 for i in range(S))
+    flops = 4 * hd * Hq * B * live
+    nbytes = 2 * B * S * hd * (2 * Hq + 2 * Hkv)      # q, o, k, v in bf16
+    t_ops, t_bytes = flops / BF16_TENSOR_FLOPS, nbytes / HBM_BYTES_PER_S
+    bound = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+    print(f"phase 4d: kernel flash_attn bf16 {what} B={B} S={S} Hq={Hq} Hkv={Hkv} "
+          f"hd={hd} causal window={window} softcap={cap:g}: {fmt_ms(ms)} per "
+          f"launch, {flops / ms[0] / 1e9:.1f} TFLOP/s; plain {fmt_ms(plain)}; "
+          f"bound {bound[0]:.6f} ms ({bound[1]}: {flops / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB); library {lib_note}")
+    return {"ms": ms, "plain": plain, "bound": bound, "library_ms": lib_ms}
 
 
 def host_rss_gb() -> float:
@@ -1685,7 +1856,6 @@ def main() -> int:
     from repro_torch.kernels.trsm_block import cuda as trsm_cuda
     from repro_torch.kernels.trsm_block.ops import make_walk_table
     from repro_torch.kernels.trsm_block.ref import block_apply_ref, blocked_walk_ref
-    from repro_torch.models.model import Model
     from repro_torch.sparse import (banded_lower, chain_matrix, lung2_like,
                                     random_lower, refresh_values)
 
@@ -2246,21 +2416,11 @@ def main() -> int:
           f"expected one walk per solve: {json.dumps(want)}")
 
     # 3d: the LM serving path at granite-3-8b's full width and depth
-    cfg = get_config(LM_ARCH)
     t0 = time.perf_counter()
-    model = Model(cfg, device=dev)
-    params = model.init(torch.Generator(device=dev).manual_seed(0))
-    torch.cuda.synchronize()
-    print(f"phase 3d: {LM_ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, "
-          f"vocab {cfg.vocab_size} (padded {cfg.vocab_pad}): "
-          f"{sum(x.numel() * x.element_size() for x in leaves(params)) / 1e9:.3f} GB "
-          f"of parameters on the card, random from seed 0, in "
-          f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    path_launches["lm"] = lm_serve(torch, cfg, model, params, reset_counts,
-                                   counts)
-    lm_cpu_check(torch, dev, cfg, flash_cuda)
+    families = {LM_ARCH: lm_family(torch, dev, rng, LM_ARCH, reset_counts, counts,
+                                   flash_cuda, "3d")}
+    path_launches["lm"] = families[LM_ARCH]["launches"]
+    torch.cuda.empty_cache()
     print(f"phase 3d: LM path in {time.perf_counter() - t0:.1f} s")
 
     # 3e: the rest of the solver's surface: serial, levelset_unroll, auto,
@@ -2322,6 +2482,21 @@ def main() -> int:
     path_launches["recurrence"] = dp["recurrence"]
     check(dp["distributed"]["spmv_ell"] > 0 and dp["distributed"]["spmv_ell_batched"] > 0,
           "the rewritten distributed solves never launched b' = E b")
+    # 3i: gemma3, RecurrentGemma and qwen1.5 at full width, then the
+    # launcher's default
+    t0 = time.perf_counter()
+    for arch in [a for a in LM_MODELS if a != LM_ARCH]:
+        t1 = time.perf_counter()
+        families[arch] = lm_family(torch, dev, rng, arch, reset_counts, counts,
+                                   flash_cuda, "3i")
+        torch.cuda.empty_cache()
+        print(f"phase 3i: {arch} in {time.perf_counter() - t1:.1f} s; host "
+              f"memory {host_rss_gb():.1f} GB resident")
+    path_launches["families"] = {name: sum(f["launches"][name] for a, f in families.items()
+                                           if a != LM_ARCH) for name in KERNELS}
+    lm_launcher(torch, get_config("gemma3-1b"), reset_counts, counts, [], "3i")
+    print(f"phase 3i: LM families in {time.perf_counter() - t0:.1f} s; launches "
+          f"{json.dumps(path_launches['families'])}")
     main_launches = {name: sum(p[name] for p in path_launches.values())
                      for name in KERNELS}
     for name in KERNELS:
@@ -2330,7 +2505,8 @@ def main() -> int:
 
     # launches of each kernel in one forward f64 solve, per strategy
     per_solve = {name: {} for name in KERNELS}
-    per_solve["flash_attn"] = {"prefill": cfg.num_layers}
+    per_solve["flash_attn"] = {f"{arch} prefill": f["attn_layers"]
+                               for arch, f in families.items()}
     cases = [(tag, solvers[tag, "float64"][0]) for tag in LEVEL_TAGS]
     cases += [(f"rewrite:{tag}", rw_solvers[tag, "float64"][0]) for tag in VARIANTS]
     cases += [("blocked", blk_solvers["float64"][0])]
@@ -2671,20 +2847,32 @@ def main() -> int:
                   f"{fmt_ms(pt)}")
     del level_tables
 
+    # the flash kernel at granite's prefill shape, then at gemma3-12b's with
+    # its softcap and without
     t0 = time.perf_counter()
-    ms, plain, bound, lib_ms = lm_times(torch, dev, rng, cfg, model, params,
-                                        flash_cuda, gqa_attention_ref)
+    fl = flash_times(torch, dev, rng, "granite prefill", FLASH_CASES["granite prefill"],
+                     flash_cuda, gqa_attention_ref)
+    shape = FLASH_CASES["gemma3-12b prefill"]
+    capped, uncapped = (flash_times(torch, dev, rng, f"gemma3-12b prefill{tag}", sh,
+                                    flash_cuda, gqa_attention_ref)
+                        for tag, sh in (("", shape), (" uncapped", shape[:-1] + (0.0,))))
     report.append({
         "name": "flash_attn", "route": "cuda", "source": KERNELS["flash_attn"][0],
         "replaces": KERNELS["flash_attn"][1],
         "launches": main_launches["flash_attn"],
         "launches_per_solve": per_solve["flash_attn"],
-        "max_abs_err": kernel_err["flash_attn", "bfloat16"], "ms": ms[0],
-        "ms_min_max": [ms[1], ms[2]], "plain_ms": plain[0],
-        "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib_ms})
-    del model, params
-    torch.cuda.empty_cache()
-    lm_launcher(torch, cfg, reset_counts, counts)
+        "max_abs_err": kernel_err["flash_attn", "bfloat16"], "ms": fl["ms"][0],
+        "ms_min_max": list(fl["ms"][1:]), "plain_ms": fl["plain"][0],
+        "bound_ms": fl["bound"][0], "bound_by": fl["bound"][1],
+        "library_ms": fl["library_ms"],
+        "softcap_case": {
+            "shape": list(shape[:5]), "softcap": shape[-1], "ms": capped["ms"][0],
+            "plain_ms": capped["plain"][0], "bound_ms": capped["bound"][0],
+            "bound_by": capped["bound"][1], "library_ms": capped["library_ms"],
+            "ms_uncapped": uncapped["ms"][0],
+            "library_ms_uncapped": uncapped["library_ms"]}})
+    lm_launcher(torch, get_config(LM_ARCH), reset_counts, counts,
+                ["--arch", LM_ARCH], "4d")
     print(f"phase 4d: LM times and launcher in {time.perf_counter() - t0:.1f} s")
     report.sort(key=lambda r: list(KERNELS).index(r["name"]))
 

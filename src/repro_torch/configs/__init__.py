@@ -1,8 +1,8 @@
 """Per-architecture configs of the port.
 
 ``get("<arch-id>")`` accepts the public dashed id (e.g. "granite-3-8b").
-Every id of the JAX package is listed; the port serves the dense,
-attention-only ones (:mod:`repro_torch.models.model`).
+Every id of the JAX package is listed; the port serves granite, gemma3,
+qwen1.5 and recurrentgemma (:mod:`repro_torch.models.model`).
 """
 from repro_torch.models.config import ARCHS, get_config, smoke_config
 

@@ -9,6 +9,11 @@
 //     o[b, i, h] = sum_j p_ij v[b, j, hk] / sum_j p_ij,
 //     p_ij = exp(s_ij - max_j s_ij),   s_ij = (q[b, i, h] . k[b, j, hk]) hd^-0.5
 //
+// and, with a score softcap c > 0 (gemma3's 30), s_ij = c tanh(s_ij / c) on
+// the scaled score, before the mask, as the JAX model's `softcap` step
+// (src/repro/models/layers.py:206-208).  The cap is a template flag of both
+// kernels: with c = 0 they do no extra work per score.
+//
 // over the keys j < Sk that are live: j < valid_len, j <= i when causal, and
 // j > i - window when window > 0.  Dead scores are the finite -1e30 of the
 // reference, never -inf: a row whose first visited tile holds only dead
@@ -137,12 +142,12 @@ __device__ __forceinline__ float masked(float s, int i, int j, int Sk,
 
 constexpr int kThreads = 256;
 
-template <int kCols>
+template <int kCols, bool kCap>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32_kernel(float* __restrict__ o, const float* __restrict__ q,
                      const float* __restrict__ k, const float* __restrict__ v,
                      int Sq, int Sk, int Hq, int Hkv, int hd, int valid_len,
-                     int causal, int window, float scale) {
+                     int causal, int window, float scale, float softcap) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ldq = hd + 1;
   const int ldp = kBK + 1;
@@ -224,8 +229,9 @@ flash_fwd_f32_kernel(float* __restrict__ o, const float* __restrict__ q,
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        sc[i][j] = masked(sc[i][j] * scale, qp, k0 + c + 16 * j, Sk, valid_len,
-                          causal, window);
+        float s = sc[i][j] * scale;
+        if constexpr (kCap) s = softcap * tanhf(s / softcap);
+        sc[i][j] = masked(s, qp, k0 + c + 16 * j, Sk, valid_len, causal, window);
         mx = fmaxf(mx, sc[i][j]);
       }
 #pragma unroll
@@ -286,15 +292,18 @@ size_t f32_smem_bytes(int hd) {
 template <int kCols>
 int launch_f32(float* o, const float* q, const float* k, const float* v, int B,
                int Sq, int Sk, int Hq, int Hkv, int hd, int valid_len,
-               int causal, int window, float scale, cudaStream_t stream) {
+               int causal, int window, float scale, float softcap,
+               cudaStream_t stream) {
   const size_t smem = f32_smem_bytes(hd);
-  auto kern = flash_fwd_f32_kernel<kCols>;
+  auto kern = softcap > 0.f ? flash_fwd_f32_kernel<kCols, true>
+                            : flash_fwd_f32_kernel<kCols, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * Hq);
   kern<<<grid, kThreads, smem, stream>>>(o, q, k, v, Sq, Sk, Hq, Hkv, hd,
-                                         valid_len, causal, window, scale);
+                                         valid_len, causal, window, scale,
+                                         softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -390,12 +399,15 @@ __device__ __forceinline__ void load_tile(bf16* tile, const bf16* src,
   }
 }
 
-template <int HD, bool kAsync>
+// Scores reach the exp2 domain as s = qk * s_mul without a cap, and as
+// s = tanh(qk * s_mul) * cap_log2 with one (s_mul = scale / cap,
+// cap_log2 = cap * log2(e)): the cap sits between the scale and log2(e).
+template <int HD, bool kAsync, bool kCap>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_bf16_kernel(bf16* __restrict__ o, const bf16* __restrict__ q,
                       const bf16* __restrict__ k, const bf16* __restrict__ v,
                       int Sq, int Sk, int Hq, int Hkv, int hd, int valid_len,
-                      int causal, int window, float scale_log2) {
+                      int causal, int window, float s_mul, float cap_log2) {
   constexpr int kLd = Tile<HD>::kLd;
   constexpr int kTile = Tile<HD>::kElems;
   constexpr int kKC = HD / 16;           // k16 steps over the head dim
@@ -503,7 +515,8 @@ flash_fwd_bf16_kernel(bf16* __restrict__ o, const bf16* __restrict__ q,
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float s = sc[j][e] * scale_log2;
+        float s = sc[j][e] * s_mul;
+        if constexpr (kCap) s = tanhf(s) * cap_log2;
         sc[j][e] = edge ? masked(s, row0 + 8 * (e >> 1), k0 + 8 * j + 2 * t + (e & 1),
                                  Sk, valid_len, causal, window)
                         : s;
@@ -582,35 +595,40 @@ flash_fwd_bf16_kernel(bf16* __restrict__ o, const bf16* __restrict__ q,
 template <int HD, bool kAsync>
 int launch_bf16(bf16* o, const bf16* q, const bf16* k, const bf16* v, int B,
                 int Sq, int Sk, int Hq, int Hkv, int hd, int valid_len,
-                int causal, int window, float scale, cudaStream_t stream) {
+                int causal, int window, float scale, float softcap,
+                cudaStream_t stream) {
   constexpr size_t smem = Tile<HD>::kSmem;
-  auto kern = flash_fwd_bf16_kernel<HD, kAsync>;
+  constexpr float kLog2e = 1.4426950408889634f;  // p = exp2(s log2(e) - m)
+  const bool cap = softcap > 0.f;
+  auto kern = cap ? flash_fwd_bf16_kernel<HD, kAsync, true>
+                  : flash_fwd_bf16_kernel<HD, kAsync, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * Hq, (Sq + kBQ - 1) / kBQ);
   kern<<<grid, kMmaThreads, smem, stream>>>(
       o, q, k, v, Sq, Sk, Hq, Hkv, hd, valid_len, causal, window,
-      scale * 1.4426950408889634f);  // log2(e): p = exp2(s log2(e) - m)
+      cap ? scale / softcap : scale * kLog2e, softcap * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD>
 int dispatch_bf16(bf16* o, const bf16* q, const bf16* k, const bf16* v, int B,
                   int Sq, int Sk, int Hq, int Hkv, int hd, int valid_len,
-                  int causal, int window, float scale, cudaStream_t stream) {
+                  int causal, int window, float scale, float softcap,
+                  cudaStream_t stream) {
   const bool aligned = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v)) & 15) == 0;
   if (hd % 8 == 0 && aligned)
     return launch_bf16<HD, true>(o, q, k, v, B, Sq, Sk, Hq, Hkv, hd, valid_len,
-                                 causal, window, scale, stream);
+                                 causal, window, scale, softcap, stream);
   return launch_bf16<HD, false>(o, q, k, v, B, Sq, Sk, Hq, Hkv, hd, valid_len,
-                                causal, window, scale, stream);
+                                causal, window, scale, softcap, stream);
 }
 
-bool bad_shape(int Sq, int Hkv, int Hq, int hd) {
+bool bad_shape(int Sq, int Hkv, int Hq, int hd, float softcap) {
   return hd < 1 || hd > 256 || Hkv < 1 || Hq % Hkv != 0 ||
-         (Sq + kBQ - 1) / kBQ > 65535;
+         (Sq + kBQ - 1) / kBQ > 65535 || !(softcap >= 0.f);
 }
 
 }  // namespace
@@ -618,18 +636,19 @@ bool bad_shape(int Sq, int Hkv, int Hq, int hd) {
 extern "C" int flash_attn_fwd_f32(float* o, const float* q, const float* k,
                                   const float* v, int B, int Sq, int Sk, int Hq,
                                   int Hkv, int hd, int valid_len, int causal,
-                                  int window, float scale, cudaStream_t stream) {
+                                  int window, float scale, float softcap,
+                                  cudaStream_t stream) {
   if (B == 0 || Sq == 0 || Hq == 0) return 0;
-  if (bad_shape(Sq, Hkv, Hq, hd) || B * Hq > 65535)
+  if (bad_shape(Sq, Hkv, Hq, hd, softcap) || B * Hq > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (hd <= 64)
     return launch_f32<4>(o, q, k, v, B, Sq, Sk, Hq, Hkv, hd, valid_len, causal,
-                         window, scale, stream);
+                         window, scale, softcap, stream);
   if (hd <= 128)
     return launch_f32<8>(o, q, k, v, B, Sq, Sk, Hq, Hkv, hd, valid_len, causal,
-                         window, scale, stream);
+                         window, scale, softcap, stream);
   return launch_f32<16>(o, q, k, v, B, Sq, Sk, Hq, Hkv, hd, valid_len, causal,
-                        window, scale, stream);
+                        window, scale, softcap, stream);
 }
 
 extern "C" int flash_attn_fwd_bf16(__nv_bfloat16* o, const __nv_bfloat16* q,
@@ -637,15 +656,16 @@ extern "C" int flash_attn_fwd_bf16(__nv_bfloat16* o, const __nv_bfloat16* q,
                                    const __nv_bfloat16* v, int B, int Sq, int Sk,
                                    int Hq, int Hkv, int hd, int valid_len,
                                    int causal, int window, float scale,
-                                   cudaStream_t stream) {
+                                   float softcap, cudaStream_t stream) {
   if (B == 0 || Sq == 0 || Hq == 0) return 0;
-  if (bad_shape(Sq, Hkv, Hq, hd)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(Sq, Hkv, Hq, hd, softcap))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (hd <= 64)
     return dispatch_bf16<64>(o, q, k, v, B, Sq, Sk, Hq, Hkv, hd, valid_len,
-                             causal, window, scale, stream);
+                             causal, window, scale, softcap, stream);
   if (hd <= 128)
     return dispatch_bf16<128>(o, q, k, v, B, Sq, Sk, Hq, Hkv, hd, valid_len,
-                              causal, window, scale, stream);
+                              causal, window, scale, softcap, stream);
   return dispatch_bf16<256>(o, q, k, v, B, Sq, Sk, Hq, Hkv, hd, valid_len,
-                            causal, window, scale, stream);
+                            causal, window, scale, softcap, stream);
 }

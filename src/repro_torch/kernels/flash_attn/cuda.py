@@ -29,18 +29,19 @@ def reset_launches() -> None:
 @functools.lru_cache(maxsize=None)
 def _entry(dtype: torch.dtype):
     fn = getattr(build.load("flash_attn"), f"flash_attn_fwd_{_SUFFIX[dtype]}")
-    fn.argtypes = [P, P, P, P] + [I32] * 9 + [ctypes.c_float, P]
+    fn.argtypes = [P, P, P, P] + [I32] * 9 + [ctypes.c_float, ctypes.c_float, P]
     fn.restype = I32
     return fn
 
 
 def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                causal: bool = True, window: int = 0,
-               valid_len: int | None = None) -> torch.Tensor:
+               valid_len: int | None = None, softcap: float = 0.0) -> torch.Tensor:
     """Attention of ``q`` ``(B, Sq, Hq, hd)`` over ``k``/``v`` ``(B, Sk,
     Hkv, hd)`` on the card, scale ``hd ** -0.5``; returns ``(B, Sq, Hq,
     hd)`` in ``q``'s dtype.  Keys at or past ``valid_len`` (default
-    ``Sk``) are dead."""
+    ``Sk``) are dead.  ``softcap > 0`` caps each scaled score at
+    ``softcap * tanh(s / softcap)`` before the mask."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attn launches the CUDA kernel; q is on {dev}")
@@ -68,10 +69,12 @@ def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"valid_len {valid_len} outside [0, {Sk}]")
     if window < 0:
         raise ValueError(f"window {window} < 0")
+    if not 0.0 <= softcap < float("inf"):
+        raise ValueError(f"softcap {softcap} is not a finite value >= 0")
     o = torch.empty_like(q)
     rc = _entry(dt)(o.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     B, Sq, Sk, Hq, Hkv, hd, valid_len, int(causal), int(window),
-                    hd ** -0.5, stream_of(dev))
+                    hd ** -0.5, float(softcap), stream_of(dev))
     raise_on_error("flash_attn", rc)
     launches["flash_attn"] += 1
     return o

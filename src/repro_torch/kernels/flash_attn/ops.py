@@ -16,11 +16,15 @@ __all__ = ["flash_attention_kernel"]
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           *, causal: bool = True, window: int = 0) -> torch.Tensor:
+                           *, causal: bool = True, window: int = 0,
+                           softcap: float = 0.0) -> torch.Tensor:
     """``q``: ``(B, Sq, Hq, hd)``, ``k``/``v``: ``(B, Sk, Hkv, hd)`` →
-    ``(B, Sq, Hq, hd)`` in ``q``'s dtype."""
+    ``(B, Sq, Hq, hd)`` in ``q``'s dtype; ``softcap > 0`` caps the scaled
+    scores before the mask."""
     if q.is_cuda:
-        return cuda.flash_attn(q, k, v, causal=causal, window=window)
+        return cuda.flash_attn(q, k, v, causal=causal, window=window,
+                               softcap=softcap)
     if q.device.type == "cpu":
-        return gqa_attention_ref(q, k, v, causal=causal, window=window)
+        return gqa_attention_ref(q, k, v, causal=causal, window=window,
+                                 softcap=softcap)
     raise ValueError(f"no flash-attention kernel for device {q.device}")

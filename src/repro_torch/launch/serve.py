@@ -1,15 +1,15 @@
 """Serving launcher: the continuous-batching engine over a synthetic
 request stream, reporting throughput.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve [--arch granite-3-8b]
+    PYTHONPATH=src python -m repro_torch.launch.serve [--arch gemma3-1b]
         [--smoke] [--slots 4] [--requests 16] [--max-new 16] [--cache 128]
         [--device cuda|cpu]
 
 The flags are those of the JAX package's launcher, plus ``--device``.  The
-default arch is ``granite-3-8b`` (the JAX launcher's is ``gemma3-1b``,
-which the port does not run yet); other archs raise
-``NotImplementedError``, as does ``--ckpt`` until checkpoints are ported.
-Parameters are random, drawn from seed 0 on the chosen device.
+default arch is ``gemma3-1b``, as the JAX launcher's; granite-3-8b,
+gemma3-12b, qwen1.5-32b and recurrentgemma-2b run too, the other archs
+raise ``NotImplementedError``, as does ``--ckpt`` until checkpoints are
+ported.  Parameters are random, drawn from seed 0 on the chosen device.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ import time
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="granite-3-8b")
+    ap.add_argument("--arch", default="gemma3-1b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--requests", type=int, default=16)
@@ -42,6 +42,8 @@ def main(argv=None):
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = Model(cfg, device=args.device)
     params = model.init(torch.Generator(device=model.device).manual_seed(0))
+    print(f"[serve] {cfg.name}{' (smoke)' if args.smoke else ''} on "
+          f"{model.device.type}: {cfg.num_layers} layers {cfg.block_pattern}")
     eng = ServeEngine(model, params, batch_slots=args.slots, s_cache=args.cache)
     rng = np.random.default_rng(0)
     reqs = []

@@ -1,6 +1,6 @@
-"""The LM serving path of the port: configurations, the layer library and
-the model assembly for dense, attention-only LMs (granite-3-8b), with
-prefill attention on the flash-attention kernel."""
+"""The LM serving path of the port: configurations, the layer library,
+the RG-LRU block and the model assembly for granite, gemma3, qwen1.5 and
+RecurrentGemma, with prefill attention on the flash-attention kernel."""
 from .config import ARCHS, ModelConfig, get_config, smoke_config
 from .model import Model, check_supported
 

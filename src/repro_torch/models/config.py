@@ -1,9 +1,10 @@
 """Model configurations: the port's own copy of the JAX package's
 ``models/config.py`` (pure Python, held equal to it by the tests).
 
-``block_pattern`` is cycled over ``num_layers``.  The port runs the dense,
-attention-only families (every block ``"attn"``, no experts, no encoder or
-prefix); :class:`repro_torch.models.model.Model` raises for the others.
+``block_pattern`` is cycled over ``num_layers``.  The port runs the
+families whose blocks are ``"attn"``, ``"attn_local"`` or ``"rec"`` (no
+experts, no encoder or prefix); :class:`repro_torch.models.model.Model`
+raises for the others.
 """
 from __future__ import annotations
 

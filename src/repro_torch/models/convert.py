@@ -4,8 +4,9 @@ The JAX ``Model.init`` returns a pytree whose scanned blocks are stacked on
 a leading ``reps`` axis (``params["blocks"]["p<pos>"]``) with the pattern's
 remainder in ``params["tail"]``.  :func:`from_jax` takes that pytree as
 numpy arrays (``jax.tree.map(np.asarray, params)``) and returns the port's
-parameters: one entry per layer, in layer order, weights in the compute
-dtype and norm scales in f32, on ``device`` (the card unless the caller
+parameters: one entry per layer, in layer order (the pattern's full
+repetitions, then its tail), weights in the compute dtype and norm scales
+and the RG-LRU's ``lam`` in f32, on ``device`` (the card unless the caller
 asks for ``"cpu"``, as every entry point of the port).
 """
 from __future__ import annotations
@@ -19,10 +20,13 @@ from .model import DTYPES, check_supported
 
 __all__ = ["from_jax"]
 
+# leaves the JAX package uses in f32 whatever the compute dtype
+F32_LEAVES = ("scale", "lam")
+
 
 def _tensors(tree, dtype: torch.dtype, device, *, rep=None):
     """``tree`` with every array (its ``rep``-th slice when given) as a
-    tensor: ``scale`` leaves f32, all others ``dtype``."""
+    tensor: the ``F32_LEAVES`` f32, all others ``dtype``."""
     out = {}
     for key, val in tree.items():
         if isinstance(val, dict):
@@ -30,7 +34,7 @@ def _tensors(tree, dtype: torch.dtype, device, *, rep=None):
             continue
         t = torch.from_numpy(np.array(val if rep is None else val[rep],
                                       dtype=np.float32))
-        out[key] = t.to(device, torch.float32 if key == "scale" else dtype)
+        out[key] = t.to(device, torch.float32 if key in F32_LEAVES else dtype)
     return out
 
 

@@ -1,6 +1,7 @@
 """Layer library of the port's LM serving path: the parts of the JAX
-package's ``models/layers.py`` that dense, attention-only configurations
-run, in torch.
+package's ``models/layers.py`` that the ported families run (causal and
+sliding-window attention with an optional score softcap, QKV bias and an
+int8 KV cache, the SwiGLU MLP, the tied embedding), in torch.
 
 Parameters are plain dicts of tensors with the JAX names.  Weights are held
 in the compute dtype (bf16 on the card) and norm scales in f32; the casts
@@ -30,7 +31,7 @@ __all__ = [
     "apply_rope", "flash_attention", "decode_attention",
     "init_attention", "attention_apply", "attention_decode",
     "init_mlp", "mlp_apply", "init_embedding", "embed_apply", "unembed_apply",
-    "softcap",
+    "softcap", "quantize_int8",
 ]
 
 UNPORTED = "not ported yet (ROADMAP A12)"
@@ -55,8 +56,8 @@ class Init:
         w = torch.randn(shape, generator=g, device=g.device, dtype=torch.float32)
         return w.mul_(std).to(self.device, self.dtype)
 
-    def zeros(self, shape) -> torch.Tensor:
-        return torch.zeros(shape, dtype=torch.float32, device=self.device)
+    def zeros(self, shape, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        return torch.zeros(shape, dtype=dtype, device=self.device)
 
 
 # --------------------------------------------------------------------------
@@ -73,17 +74,26 @@ def rms_norm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps) * (1.0 + params["scale"])).to(x.dtype)
 
 
-def init_dense(init: Init, d_in: int, d_out, *, scale: float | None = None) -> dict:
+def init_dense(init: Init, d_in: int, d_out, *, bias: bool = False,
+               scale: float | None = None) -> dict:
+    """A weight ``(d_in, *d_out)``; with ``bias`` a zero ``b`` of shape
+    ``d_out`` in the compute dtype."""
     shape = (d_in,) + (tuple(d_out) if isinstance(d_out, (tuple, list)) else (d_out,))
-    return {"w": init.normal(shape, scale if scale is not None else d_in ** -0.5)}
+    p = {"w": init.normal(shape, scale if scale is not None else d_in ** -0.5)}
+    if bias:
+        p["b"] = init.zeros(shape[1:], init.dtype)
+    return p
 
 
 def dense(params: dict, x: torch.Tensor) -> torch.Tensor:
     """Contract ``x``'s last axis with the weight's first: ``(D, H, hd)``
-    weights give ``(..., H, hd)``, ``(H * hd, D)`` weights ``(..., D)``.
-    (No bias: QKV bias comes with qwen, ROADMAP A12.)"""
+    weights give ``(..., H, hd)``, ``(H * hd, D)`` weights ``(..., D)``;
+    then add ``b``, cast to ``x``'s dtype, where the layer has one."""
     w = params["w"].to(x.dtype)
-    return torch.matmul(x, w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *w.shape[1:])
+    y = torch.matmul(x, w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *w.shape[1:])
+    if "b" in params:
+        y = y + params["b"].to(x.dtype)
+    return y
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
@@ -128,13 +138,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softcap_val: float = 0.0) -> torch.Tensor:
     """``q``: ``(B, Sq, Hq, hd)``, ``k``/``v``: ``(B, Sk, Hkv, hd)`` on the
     flash-attention kernel; ``kind`` ``"causal"`` or ``"window"`` (causal
-    sliding window of ``window`` keys)."""
-    if softcap_val > 0.0:
-        raise NotImplementedError(f"attention score softcap {UNPORTED}: gemma3")
-    if kind == "causal":
-        return flash_attention_kernel(q, k, v, causal=True)
-    if kind == "window":
-        return flash_attention_kernel(q, k, v, causal=True, window=window)
+    sliding window of ``window`` keys); ``softcap_val > 0`` caps the
+    scaled scores before the mask."""
+    if kind in ("causal", "window"):
+        return flash_attention_kernel(q, k, v, causal=True,
+                                      window=window if kind == "window" else 0,
+                                      softcap=softcap_val)
     if kind in ("full", "prefix"):
         raise NotImplementedError(f"attention kind {kind!r} {UNPORTED}: "
                                   "whisper, paligemma")
@@ -143,20 +152,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cur_index: int, *,
-                     softcap_val: float = 0.0) -> torch.Tensor:
+                     softcap_val: float = 0.0,
+                     kv_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One query token ``(B, 1, Hq, hd)`` against the first ``cur_index``
-    entries of a ``(B, S, Hkv, hd)`` cache; f32 math, ``q``'s dtype out."""
-    if softcap_val > 0.0:
-        raise NotImplementedError(f"attention score softcap {UNPORTED}: gemma3")
+    entries of a ``(B, S, Hkv, hd)`` cache; f32 math, ``q``'s dtype out.
+    An int8 cache is dequantized with ``kv_scale`` ``(B, S, Hkv, 2)`` (the
+    keys' scale, then the values')."""
     B, S, Hkv, hd = k_cache.shape
+    kf, vf = k_cache.float(), v_cache.float()
+    if kv_scale is not None:
+        kf = kf * kv_scale[..., 0, None]
+        vf = vf * kv_scale[..., 1, None]
     g = q.shape[2] // Hkv
     qf = q.reshape(B, Hkv, g, hd).float()
-    s = torch.einsum("bhgd,bshd->bhgs", qf, k_cache.float()) * hd ** -0.5
+    s = torch.einsum("bhgd,bshd->bhgs", qf, kf) * hd ** -0.5
+    s = softcap(s, softcap_val)
     pos = torch.arange(S, device=q.device)
     s = torch.where(pos < cur_index, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
+    o = torch.einsum("bhgs,bshd->bhgd", p, vf)
     return o.reshape(B, 1, Hkv * g, hd).to(q.dtype)
+
+
+def quantize_int8(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(..., hd)`` → int8 values and an f32 scale per ``(...)``:
+    ``max(amax, 1e-6) / 127``, rounded half to even as ``jnp.round``."""
+    tf = t.float()
+    scale = tf.abs().amax(-1).clamp_min(1e-6) / 127.0
+    return torch.round(tf / scale[..., None]).to(torch.int8), scale
 
 
 def init_attention(init: Init, cfg: ModelConfig) -> dict:
@@ -164,16 +187,18 @@ def init_attention(init: Init, cfg: ModelConfig) -> dict:
     Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
     return {
         "ln": init_rms_norm(init, D),
-        "q": init_dense(init, D, (Hq, hd)),
-        "k": init_dense(init, D, (Hkv, hd)),
-        "v": init_dense(init, D, (Hkv, hd)),
+        "q": init_dense(init, D, (Hq, hd), bias=cfg.qkv_bias),
+        "k": init_dense(init, D, (Hkv, hd), bias=cfg.qkv_bias),
+        "v": init_dense(init, D, (Hkv, hd), bias=cfg.qkv_bias),
         "o": init_dense(init, Hq * hd, D, scale=(Hq * hd) ** -0.5),
     }
 
 
 def attention_apply(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                    positions: torch.Tensor, *, return_kv: bool = False):
-    """Pre-norm causal GQA self-attention block with RoPE and its residual:
+                    positions: torch.Tensor, *, kind: str = "causal",
+                    return_kv: bool = False):
+    """Pre-norm GQA self-attention block with RoPE and its residual, the
+    mask ``kind`` ``"causal"`` or ``"window"`` (``cfg.window`` keys):
     ``x`` ``(B, S, D)`` → ``(B, S, D)``; with ``return_kv`` also the
     block's ``(k, v)`` (``k`` after RoPE), which prefill writes to the
     cache."""
@@ -182,30 +207,45 @@ def attention_apply(params: dict, cfg: ModelConfig, x: torch.Tensor,
     spec = RopeSpec(cfg.hd, cfg.rope_theta)
     q = apply_rope(q, positions, spec)
     k = apply_rope(k, positions, spec)
-    o = flash_attention(q, k, v, softcap_val=cfg.logit_softcap)
+    o = flash_attention(q, k, v, kind=kind, window=cfg.window,
+                        softcap_val=cfg.logit_softcap)
     B, S = x.shape[:2]
     out = x + dense(params["o"], o.reshape(B, S, cfg.n_heads * cfg.hd))
     return (out, (k, v)) if return_kv else out
 
 
 def attention_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                     cache: dict, idx: int) -> tuple[torch.Tensor, dict]:
+                     cache: dict, idx: int, *,
+                     local: bool = False) -> tuple[torch.Tensor, dict]:
     """One decode step ``x`` ``(B, 1, D)`` at position ``idx``: writes this
-    token's K/V into ``cache`` (in place) and attends over entries
-    ``< idx + 1``.  The write position is clamped to the cache's last slot,
-    as the JAX package's ``dynamic_update_slice`` clamps it.  (The local
-    layers' ring cache comes with gemma3, ROADMAP A12.)"""
+    token's K/V into ``cache`` (in place) and attends over it.  A global
+    layer writes slot ``idx``, clamped to the cache's last slot as the JAX
+    package's ``dynamic_update_slice`` clamps it, and attends over entries
+    ``< idx + 1``; a ``local`` layer's cache is a ring: it writes slot
+    ``idx % S`` and attends over ``min(idx + 1, S)`` slots.  A cache with a
+    ``scale`` leaf is int8: the token's K/V are quantized per head."""
     h = rms_norm(params["ln"], x)
     q, k, v = dense(params["q"], h), dense(params["k"], h), dense(params["v"], h)
     spec = RopeSpec(cfg.hd, cfg.rope_theta)
     pos = torch.full((x.shape[0], 1), idx, dtype=torch.int32, device=x.device)
     q = apply_rope(q, pos, spec)
     k = apply_rope(k, pos, spec)
-    slot = min(max(idx, 0), cache["k"].shape[1] - 1)
-    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
-    o = decode_attention(q, cache["k"], cache["v"], idx + 1,
-                         softcap_val=cfg.logit_softcap)
+    S = cache["k"].shape[1]
+    if local:
+        slot, cur = idx % S, min(idx + 1, S)
+    else:
+        slot, cur = min(max(idx, 0), S - 1), idx + 1
+    if "scale" in cache:
+        (kq, ksc), (vq, vsc) = quantize_int8(k[:, 0]), quantize_int8(v[:, 0])
+        cache["k"][:, slot] = kq
+        cache["v"][:, slot] = vq
+        cache["scale"][:, slot] = torch.stack([ksc, vsc], -1)
+    else:
+        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    o = decode_attention(q, cache["k"], cache["v"], cur,
+                         softcap_val=cfg.logit_softcap,
+                         kv_scale=cache.get("scale"))
     B = x.shape[0]
     return x + dense(params["o"], o.reshape(B, 1, cfg.n_heads * cfg.hd)), cache
 

@@ -4,8 +4,9 @@ package's ``serve/engine.py``).
 
 A fixed pool of ``B`` decode slots; finished sequences are replaced from
 the admission queue each step.  Per-slot state lives in one batched KV
-cache; a joining request is prefilled alone (batch 1) and its cache is
-copied into its slot.  As in the JAX engine, every slot decodes at one
+cache; a joining request is prefilled alone (batch 1) and every leaf of
+its per-layer cache (``k``, ``v``, ``scale``, ``h``, ``conv``) is copied
+into its slot.  As in the JAX engine, every slot decodes at one
 shared position, the largest ``idx`` of the requests joined so far, so a
 slot that joins later with a shorter prompt decodes past its own length.
 
@@ -71,15 +72,15 @@ class ServeEngine:
         self.queue.append(req)
 
     def _join(self, slot: int, req: Request):
-        """Prefill a single joining request and copy its cache into ``slot``
-        of the batched cache."""
+        """Prefill a single joining request and copy every leaf of its
+        per-layer cache into ``slot`` of the batched cache."""
         prompt = torch.as_tensor(np.asarray(req.prompt)[None], dtype=torch.long,
                                  device=self.model.device)
         logits, cache1 = self._prefill(self.params, prompt)
         self.prefills += 1
         for big, small in zip(self.cache["layers"], cache1["layers"]):
-            big["k"][slot] = small["k"][0]
-            big["v"][slot] = small["v"][0]
+            for name, leaf in small.items():
+                big[name][slot] = leaf[0]
         self.cache["idx"] = max(self.cache["idx"], cache1["idx"])
         tok = int(logits[0, -1].argmax())
         self.tokens[slot, 0] = tok

@@ -2,8 +2,9 @@
 on the same CUDA tensors; the solver's kernel strategies, with and without
 equation rewriting, against the plain ``levelset`` executor; the scatter
 layout's level step and its blocked solve's block applies on a path; the
-blocked solve against a dense solve; and the LM's prefill on the card
-against the same model on the CPU.  Marked ``cuda``: they skip where no GPU is
+blocked solve against a dense solve; the flash kernel's score softcap; and
+each LM family's prefill and decode on the card against the same model on
+the CPU.  Marked ``cuda``: they skip where no GPU is
 visible, and run on a machine with one via
 
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
@@ -628,6 +629,32 @@ def test_flash_bf16_plain_load_path(card, hd):
     assert _rel(got.float(), gqa_attention_ref(q, k, v).float()) <= FLASH_TOL[torch.bfloat16]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [240, 256])
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("cap", [30.0, 2.0])
+def test_flash_softcap_matches_plain(card, dtype, hd, window, cap):
+    """The score softcap (gemma3's 30, and 2, which bites on most scores):
+    gemma3-12b's head dim 240 under the 256 template, and 256; causal,
+    with and without a window; ragged S, GQA 2:1."""
+    for S, seed in ((200, 1), (65, 2)):
+        _flash_case(card, dtype, 2, S, S, 4, 2, hd, seed=seed + hd + window,
+                    causal=True, window=window, softcap=cap)
+    q, k, v = _qkv(1, 130, 130, 2, 1, hd, dtype, card, seed=3)
+    capped = flash_cuda.flash_attn(q, k, v, softcap=cap).float()
+    uncapped = flash_cuda.flash_attn(q, k, v).float()
+    assert not torch.equal(capped, uncapped)
+    if cap == 2.0:                      # bites on most scores of N(0, 1)
+        assert _rel(capped, uncapped) > FLASH_TOL[dtype]
+
+
+def test_flash_rejects_a_negative_softcap(card):
+    q = torch.zeros((1, 64, 2, 64), device=card)
+    for cap in (-1.0, float("nan"), float("inf")):
+        with pytest.raises(ValueError, match="softcap"):
+            flash_cuda.flash_attn(q, q, q, softcap=cap)
+
+
 def _fused_matrix(name):
     if name == "chain":
         return chain_matrix(300)          # one row per span: 299 grid barriers
@@ -695,6 +722,51 @@ def test_lm_prefill_on_card_matches_cpu(card):
             assert flash_cuda.launches["flash_attn"] - before == cfg.num_layers
         out[dev.type] = torch.cat([t.float().cpu() for t in steps], 1)
     assert _rel(out["cuda"], out["cpu"]) <= 1e-3
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "gemma3-12b", "qwen1.5-32b",
+                                  "recurrentgemma-2b"])
+def test_lm_family_on_card_matches_cpu(card, arch):
+    """Each family of the second LM slice at its smoke size (f32): prefill
+    (a prompt longer than the window of 8) and three decode steps on the
+    card (the flash kernel, with gemma3's softcap) against the CPU (its
+    plain version), same weights and tokens; then a ServeEngine of 2 slots
+    over 3 requests on the card.  Tolerance 8e-3: the bf16 KV and conv
+    caches and qwen's int8 cache round in both, and an f32 difference of
+    one rounding step can round a cached entry one bf16 step (up to 2^-7)
+    or one int8 step (1/127) apart."""
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = smoke_config(arch)
+    n_attn = sum(k.startswith("attn") for k in cfg.kinds())
+    rng = np.random.default_rng(9)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 20))).int()
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 2, 1))).int()
+    out = {}
+    for dev in (torch.device("cpu"), card):
+        model = Model(cfg, device=dev)
+        params = model.init(torch.Generator().manual_seed(0))
+        before = flash_cuda.launches["flash_attn"]
+        logits, cache = model.prefill(params, toks.to(dev), 32)
+        steps = [logits]
+        for t in nxt:
+            logits, cache = model.decode_step(params, t.to(dev), cache)
+            steps.append(logits)
+        if dev.type == "cuda":
+            assert flash_cuda.launches["flash_attn"] - before == n_attn
+        out[dev.type] = torch.cat([t.float().cpu() for t in steps], 1)
+    assert torch.isfinite(out["cuda"]).all()
+    assert _rel(out["cuda"], out["cpu"]) <= 8e-3
+    eng = ServeEngine(model, params, batch_slots=2, s_cache=16)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32), max_new=10)
+            for i, n in enumerate((5, 12, 7))]
+    for r in reqs:
+        eng.submit(r)
+    before = flash_cuda.launches["flash_attn"]
+    eng.run(max_steps=100)
+    torch.cuda.synchronize()
+    assert all(r.done and len(r.out) == 11 for r in reqs)
+    assert flash_cuda.launches["flash_attn"] - before == n_attn * eng.prefills == 3 * n_attn
 
 
 # --------------------------------------------------------------------------

@@ -32,7 +32,8 @@ CHECK = (
     "repro_torch.bench.sweep, repro_torch.bench.guard, "
     "repro_torch.bench.preconditioner, repro_torch.bench.rewrite_planner, "
     "repro_torch.core.recurrence, repro_torch.core.dist, "
-    "repro_torch.launch.mesh, repro_torch.bench.dist_solve, sys; "
+    "repro_torch.launch.mesh, repro_torch.bench.dist_solve, "
+    "repro_torch.bench.lm_step, sys; "
     "from repro_torch.serve import (ServeEngine, Request, SolveEngine, "
     "SolveRequest, SolverRegistry, SolverEntry, pattern_key, SolveService, "
     "TenantState, LatencyHistogram); "

@@ -15,6 +15,7 @@ differs by one rounding step can round one bf16 step apart: the cache's
 contents are compared at 4e-3 in f32, one bf16 step (2^-8) of the largest
 entry."""
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -77,10 +78,104 @@ def test_config_copy_matches_jax(arch):
     assert get(arch).params_B() == jax_config.get_config(arch).params_B()
 
 
-@pytest.mark.parametrize("arch", sorted(set(jax_config.ARCHS) - {ARCH}))
+UNPORTED_ARCHS = ("whisper-medium", "paligemma-3b", "xlstm-350m",
+                  "llama4-scout-17b-a16e", "arctic-480b")
+PORTED_ARCHS = ("gemma3-1b", "gemma3-12b", "qwen1.5-32b", "recurrentgemma-2b")
+
+
+@pytest.mark.parametrize("arch", UNPORTED_ARCHS)
 def test_unported_archs_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         Model(smoke_config(arch), device="cpu")
+
+
+def test_every_arch_is_ported_or_raises():
+    assert sorted(UNPORTED_ARCHS + PORTED_ARCHS + (ARCH,)) == sorted(jax_config.ARCHS)
+
+
+@pytest.mark.parametrize("arch", PORTED_ARCHS)
+def test_ported_archs_build_on_cpu(arch):
+    """The four archs of the second LM slice build, init and run a prefill
+    and a decode step at their smoke size (the parity tests are in
+    ``tests/test_torch_lm_gemma3.py`` and ``test_torch_lm_recurrent.py``)."""
+    cfg = smoke_config(arch)
+    model = Model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    assert len(params["layers"]) == cfg.num_layers
+    logits, cache = model.prefill(params, torch.from_numpy(_tokens(1, (2, 11), 256)), 16)
+    logits, cache = model.decode_step(params, torch.zeros((2, 1), dtype=torch.long), cache)
+    assert logits.shape == (2, 1, cfg.vocab_pad) and torch.isfinite(logits).all()
+    assert cache["idx"] == 12
+
+
+def _leaf_shapes(tree, prefix=()):
+    """``{path: (shape, dtype name)}`` of a tree's arrays (dicts, lists)."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    out = {}
+    for key, val in items:
+        if isinstance(val, (dict, list)):
+            out.update(_leaf_shapes(val, prefix + (key,)))
+        else:
+            out[prefix + (key,)] = (tuple(val.shape), str(val.dtype).split(".")[-1])
+    return out
+
+
+@pytest.mark.parametrize("arch", (ARCH,) + PORTED_ARCHS)
+def test_param_shapes_match_jax_on_meta(arch):
+    """At full size, with nothing allocated: the port's parameters on the
+    meta device against ``jax.eval_shape`` of the JAX init, leaf for leaf
+    (the stacked ``reps`` axis taken off); weights bf16, norm scales and
+    ``lam`` f32."""
+    cfg = get(arch)
+    port = Model(cfg, device="meta").init()
+    want = jax.eval_shape(JaxModel(jax_config.get_config(arch)).init, jax.random.key(0))
+    P = len(cfg.block_pattern)
+    reps = cfg.num_layers // P
+    layers = [{k: (shape[1:], dt) for k, (shape, dt)
+               in _leaf_shapes(want["blocks"][f"p{i % P}"]).items()}
+              for i in range(reps * P)]
+    layers += [_leaf_shapes(t) for t in want["tail"]]
+    assert len(port["layers"]) == len(layers) == cfg.num_layers
+    for got, ref in zip(port["layers"], layers):
+        got = _leaf_shapes(got)
+        assert got.keys() == ref.keys()
+        for path, (shape, dtype) in got.items():
+            assert shape == ref[path][0], path
+            assert dtype == ("float32" if path[-1] in ("scale", "lam") else "bfloat16"), path
+    for name in ("embed", "final_ln"):
+        got, ref = _leaf_shapes(port[name]), _leaf_shapes(want[name])
+        assert {k: v[0] for k, v in got.items()} == {k: v[0] for k, v in ref.items()}
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "recurrentgemma-2b"])
+def test_from_jax_pattern_with_tail(arch):
+    """Two repetitions of a longer pattern and a tail of two: layer ``r *
+    P + pos`` is slice ``r`` of block ``p<pos>``, then the tail in order;
+    bf16 weights, f32 norm scales and ``lam``."""
+    cfg = dataclasses.replace(smoke_config(arch), dtype="bfloat16")
+    P = len(cfg.block_pattern)
+    cfg = dataclasses.replace(cfg, num_layers=2 * P + 2)
+    jcfg = dataclasses.replace(jax_smoke_config(arch), dtype="bfloat16", num_layers=2 * P + 2)
+    tree = jax.tree.map(np.asarray, JaxModel(jcfg).init(jax.random.key(4)))
+    got = from_jax(tree, cfg, device="cpu")
+    want = [jax.tree.map(lambda a, r=r: a[r], tree["blocks"][f"p{pos}"])
+            for r in range(2) for pos in range(P)] + list(tree["tail"])
+    assert len(tree["tail"]) == 2 and len(got["layers"]) == len(want) == 2 * P + 2
+
+    def same(port, ref):
+        assert port.keys() == ref.keys()
+        for key, val in ref.items():
+            if isinstance(val, dict):
+                same(port[key], val)
+                continue
+            t = port[key]
+            assert t.dtype == (torch.float32 if key in ("scale", "lam") else torch.bfloat16)
+            np.testing.assert_array_equal(
+                t.float().numpy(),
+                torch.from_numpy(np.array(val, np.float32)).to(t.dtype).float().numpy())
+
+    for port, ref in zip(got["layers"], want):
+        same(port, ref)
 
 
 def test_full_granite_on_meta_has_params_B():
@@ -192,8 +287,6 @@ def test_unported_attention_options_raise():
     for kind in ("full", "prefix"):
         with pytest.raises(NotImplementedError, match="ROADMAP A12"):
             pl.flash_attention(q, q, q, kind=kind)
-    with pytest.raises(NotImplementedError, match="softcap"):
-        pl.flash_attention(q, q, q, softcap_val=30.0)
     with pytest.raises(NotImplementedError, match="checkpoints"):
         launch_serve.main(["--smoke", "--device", "cpu", "--ckpt", "somewhere"])
 
@@ -292,7 +385,26 @@ def test_serve_engine_matches_jax_engine():
 
 
 def test_launcher_smoke_on_cpu(capsys):
-    reqs = launch_serve.main(["--smoke", "--device", "cpu", "--requests", "5",
-                              "--max-new", "3"])
+    reqs = launch_serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                              "--requests", "5", "--max-new", "3"])
     assert all(r.done and len(r.out) == 4 for r in reqs)
     assert "[serve] 5/5 requests, 20 tokens" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["granite-3-8b", "recurrentgemma-2b"])
+def test_lm_step_bench_times_decode_on_cpu(arch, tmp_path):
+    """``bench/lm_step.py`` (the decode-step timer) on a smoke config on the
+    host clock: one record per run, appended to ``--json`` as printed."""
+    from pathlib import Path
+
+    from repro_torch.bench import lm_step
+
+    out = tmp_path / "steps.jsonl"
+    rec = lm_step.main(["--arch", arch, "--smoke", "--device", "cpu",
+                        "--json", str(out)])
+    assert rec["layers"] == smoke_config(arch).num_layers
+    assert rec["position"] == lm_step.S_CACHE // 2
+    assert len(rec["decode_ms_samples"]) == lm_step.SAMPLES
+    assert rec["decode_ms"] > 0
+    assert rec["tree"] == str(Path(__file__).resolve().parents[1])
+    assert out.read_text().splitlines() == [json.dumps(rec)]
