@@ -7,9 +7,11 @@ paper's lung2 (``lung2_like(scale=1.0)``:
 same row count (``banded_lower(110592, bandwidth=24, fill=1.0)``, the JAX
 blocked benchmark's band) and on a band whose panels are too wide to
 stage (``banded_lower(8192, bandwidth=300, fill=1.0)``), and the LM
-serving path with granite-3-8b at full width and depth (40 layers, random
-weights from a seed), then gemma3-1b, recurrentgemma-2b, gemma3-12b (12 of
-48 layers) and qwen1.5-32b (8 of 64 layers) at full width.
+serving path with granite-3-8b at full width (10 of 40 layers, random
+weights from a seed), then gemma3-1b, recurrentgemma-2b, gemma3-12b (6 of
+48 layers) and qwen1.5-32b (8 of 64 layers), then llama4-scout (8 of 48
+layers), arctic (2 of 35 layers) and xlstm-350m (24 layers) at full
+width.
 
     python3 chip_smoke.py
 
@@ -36,7 +38,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    attention in bf16/f32 at granite's prefill shape, a ragged
    sliding-window case, each head-dim template 64/128/256, and gemma3-1b's
    and gemma3-12b's prefill shapes with the score softcap of 30, the
-   latter at head dim 240 under the 256 template);
+   latter at head dim 240 under the 256 template, and llama4-scout's and
+   arctic's, query groups of 5 and 7);
 3. the paths, each with the launch counts zeroed just before and read just
    after, every kernel of the path launched:
    a. ``SpTRSV.build_pair`` for ``pallas_level``, ``pallas_level`` +
@@ -56,7 +59,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
       the host, and ``refresh``; one blocked-walk launch per solve, no
       SpMV or per-segment apply launch;
    small matrices of every path are held against a dense solve first;
-   d. granite-3-8b served by ``ServeEngine`` (4 slots, a 2,048-token cache,
+   d. granite-3-8b (10 of 40 layers) served by ``ServeEngine`` (4 slots, a
+      2,048-token cache,
       8 requests with prompts of 512-2,048 tokens, 16 new tokens each):
       every request finishes, every logit is finite, and the flash kernel
       runs once per layer and prefill; then the launcher
@@ -129,7 +133,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
       cache, 8 prompts of 512-2,048 tokens, the last 2,048, 16 new tokens):
       gemma3-1b (26 layers, 5:1 local:global, softcap), recurrentgemma-2b
       (26 layers, RG-LRU on ``doubling`` and local attention), gemma3-12b
-      (12 of 48 layers) and qwen1.5-32b (8 of 64 layers, QKV bias, int8 KV
+      (6 of 48 layers) and qwen1.5-32b (8 of 64 layers, QKV bias, int8 KV
       cache): every request done, finite logits, one flash launch per
       attention layer and prefill, the local rings wrapped, qwen's cache
       int8 with f32 scales; the first pattern repetition of gemma3-1b (6
@@ -139,6 +143,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
       decode steps' logits within 2e-2 of the CPU's bf16, and no further
       from the CPU's f32 than 1.25 times the CPU's bf16 is; then the
       launcher with no argument (gemma3-1b);
+   j. the third LM slice's archs, served as in i: llama4-scout (8 of 48
+      layers; 16 experts top-1 and a shared expert), arctic (2 of 35
+      layers; 128 experts top-2 and a dense MLP) and xlstm-350m (24
+      layers: mLSTM chunkwise, sLSTM one step a position; prompts whole
+      multiples of 256): every request done, finite logits, one flash
+      launch per attention layer and prefill (none for xLSTM); the card
+      against the CPU on llama4-scout's first 2 layers (256 tokens),
+      arctic's first (256 tokens, the CPU's bf16 only) and xlstm's first
+      8 (512 tokens), with the (token, choice) routes that differ from the
+      card's counted; the routes past capacity in a 2,048-token MoE
+      prefill; llama4-scout's first MoE layer expert parallel on a world
+      of one NCCL rank against the local path; the launcher on
+      xlstm-350m at full size and on the MoE archs at their smoke size;
 4. CUDA-event times per solve and per kernel (median and range of three
    batches; a solve slower than the batch budget is timed once), beside
    each kernel's bound, its plain version and a library call, and the
@@ -155,8 +172,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    a ``pallas_fused`` solve each way; for the LM, prefill ms per request, decode ms
    per step beside its weight-read bound, and the device's busy share of a
    decode step (granite; each model of 3i, the busy share for
-   recurrentgemma-2b), and the flash kernel at gemma3-12b's prefill shape
-   with and without its softcap; the scatter level step on lung2's widest wavefront, and
+   recurrentgemma-2b; and 3j's, with an MoE step's two weight-read bounds,
+   every expert and the routed ones only), and the flash kernel at
+   gemma3-12b's prefill shape with and without its softcap and at
+   arctic's (a query group of 7); the scatter level step on lung2's widest wavefront, and
    the block applies of one scatter blocked band solve beside
    ``torch.bmm``.
 
@@ -211,8 +230,8 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 WIDTHS = (1, 32)
 
-# The LM serving path: granite-3-8b (models/config.py) at full width and
-# depth, served as an engine of 4 slots would serve it.
+# The LM serving path: granite-3-8b (models/config.py) at full width,
+# served as an engine of 4 slots would serve it.
 LM_ARCH = "granite-3-8b"
 LM_SLOTS, LM_S_CACHE, LM_REQUESTS, LM_MAX_NEW = 4, 2048, 8, 16
 LM_PROMPT_LEN = (512, 2048)          # drawn from a seed, both ends included
@@ -225,7 +244,9 @@ FLASH_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 # first is granite's prefill attention at the longest prompt, and is timed;
 # the bf16 kernel has a template per head dim 64 / 128 / 256; the last two
 # are gemma3's prefill attention with its score softcap (gemma3-12b's head
-# dim 240 runs under the 256 template), and the 12b one is timed too
+# dim 240 runs under the 256 template), and the 12b one is timed too; then
+# llama4-scout's and arctic's prefill attention, query groups of 5 and 7
+# (arctic's is timed)
 FLASH_CASES = {"granite prefill": (1, 2048, 32, 8, 128, 0, 0.0),
                "ragged window": (2, 200, 4, 4, 64, 128, 0.0),
                "hd=256": (1, 300, 4, 1, 256, 0, 0.0),
@@ -233,7 +254,9 @@ FLASH_CASES = {"granite prefill": (1, 2048, 32, 8, 128, 0, 0.0),
                "hd=128 ragged": (2, 65, 4, 4, 128, 0, 0.0),
                "hd=256 long": (1, 2048, 8, 2, 256, 0, 0.0),
                "gemma3-1b prefill": (1, 2048, 4, 1, 256, 1024, 30.0),
-               "gemma3-12b prefill": (1, 2048, 16, 8, 240, 0, 30.0)}
+               "gemma3-12b prefill": (1, 2048, 16, 8, 240, 0, 30.0),
+               "llama4-scout prefill": (1, 2048, 40, 8, 128, 0, 0.0),
+               "arctic prefill": (1, 2048, 56, 8, 128, 0, 0.0)}
 # both fused solves on a chain in phase 2: one row per span, so one
 # dependent hop of the walk and one grid barrier of the batched grid per row
 CHAIN_N = 1000
@@ -293,8 +316,10 @@ RECURRENCE_SPTRSV = (512, 2)
 # served, None for all; layers of the card-vs-CPU check, its first pattern
 # repetition, 0 for none; that check's prompt; the check's limit against
 # the CPU's f32).  Depth cuts: qwen1.5-32b's 64 layers are 68.8 GB of bf16
-# weights on an 80 GB card; gemma3-12b runs two pattern repetitions for
-# the time limit.
+# weights on an 80 GB card; for the time limit (on an H100 the script took
+# 1,137 s of its 1,200 after the card check with phase 3j and these two
+# at 40 and 12 layers), granite-3-8b runs 10 of its 40 layers and
+# gemma3-12b one pattern repetition, 6 of 48.
 #
 # The card-vs-CPU check runs the prefill and LM_CPU_STEPS decode steps on
 # the card (bf16, the kernel) and on the CPU (the plain versions) in bf16
@@ -304,13 +329,37 @@ RECURRENCE_SPTRSV = (512, 2)
 # for gemma3-1b's 6 layers at 1,100 tokens, where the JAX package's own
 # bf16 logits are 2.5e-2 to 3.1e-2 from its f32 ones
 # (tests/test_torch_lm_bf16_gap.py, at this configuration).
+#
+# Phase 3j serves the third LM slice's archs alike: llama4-scout (MoE,
+# 16 experts top-1 and a shared expert) cut to 8 of 48 layers (48 are ~214
+# GB of bf16; 8 are ~37 GB), its check 2 layers at 256 tokens; arctic (MoE,
+# 128 experts top-2 and a dense MLP) cut to 2 of 35 layers (one layer is
+# 27.2 GB; 35 are ~953 GB), its check 1 layer against the CPU's bf16 only
+# (an f32 host copy of one layer's experts is 53.5 GB of the host's 96
+# GiB), f32 limit None; xlstm-350m whole (24 layers, 1.1 GB), its check one
+# pattern repetition (7 mLSTM, 1 sLSTM) at 512 tokens.  xLSTM prompts are
+# multiples of 256 from 512 to 2,048: the mLSTM's chunkwise scan takes a
+# prompt longer than its chunk of 256 only in whole chunks (a ValueError
+# otherwise, as the JAX package asserts; ROADMAP C-ref 9).  Widths, expert
+# counts, top-k and the capacity factor are as published.
 LM_CPU_TOL = 2e-2
-LM_MODELS = {"granite-3-8b": (None, 2, 512, LM_CPU_TOL),
+LM_MODELS = {"granite-3-8b": (10, 2, 512, LM_CPU_TOL),
              "gemma3-1b": (None, 6, 1100, 4e-2),
              "recurrentgemma-2b": (None, 3, 512, LM_CPU_TOL),
-             "gemma3-12b": (12, 0, 0, None),
-             "qwen1.5-32b": (8, 2, 512, LM_CPU_TOL)}
+             "gemma3-12b": (6, 0, 0, None),
+             "qwen1.5-32b": (8, 2, 512, LM_CPU_TOL),
+             "llama4-scout-17b-a16e": (8, 2, 256, LM_CPU_TOL),
+             "arctic-480b": (2, 1, 256, None),
+             "xlstm-350m": (None, 8, 512, LM_CPU_TOL)}
+LM_SLICE3 = ("llama4-scout-17b-a16e", "arctic-480b", "xlstm-350m")
 LM_CPU_STEPS = 2
+# the MoE arch one of whose layers runs expert parallel on a world of one
+# NCCL rank (arctic's layer would need two more copies of its 26.8 GB of
+# experts: the shard and the gathered weights), held against the local
+# path: both run the same bf16 products, so only another cuBLAS algorithm
+# for the copies could part them
+EP_ARCH = "llama4-scout-17b-a16e"
+EP_TOL = 2e-2
 # H100 SXM data sheet: dense bf16 tensor-core rate (the attention bound)
 BF16_TENSOR_FLOPS = 989e12
 
@@ -369,14 +418,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, *, warm: bool = True, budget_ms: float = 200.0,
+def time_ms(torch, fn, *, warm: bool = True, budget_ms: float = 120.0,
             max_reps: int = 20, samples: int = 3) -> tuple[float, float, float]:
     """``(median, min, max)`` ms per call over ``samples`` batches of repeated
     calls between CUDA events (host launch gaps included — what a caller of
     the solve waits).  A first timed call, after an untimed warm-up unless
     ``warm`` is false (the caller has already run ``fn``), sizes each batch
-    to about ``budget_ms``; a call that alone exceeds the budget is timed
-    once."""
+    to about ``budget_ms`` (120 ms, from 200, to keep the script within
+    its time limit); a call that alone exceeds the budget is timed once."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
 
@@ -524,13 +573,49 @@ def leaves(tree):
 
 
 def tree_to(tree, dev, dtype):
-    """``tree`` on ``dev``: norm scales as they are, every other tensor in
-    ``dtype`` (the port's layout of parameters)."""
+    """``tree`` on ``dev``: the leaves the port keeps in f32 (norm scales,
+    ``lam``, the sLSTM's recurrent matrices) as they are, every other tensor
+    in ``dtype`` (the port's layout of parameters)."""
+    from repro_torch.models.convert import F32_LEAVES
+
     if isinstance(tree, list):
         return [tree_to(item, dev, dtype) for item in tree]
     return {k: tree_to(v, dev, dtype) if isinstance(v, (dict, list))
-            else v.to(dev, v.dtype if k == "scale" else dtype)
+            else v.to(dev, v.dtype if k in F32_LEAVES else dtype)
             for k, v in tree.items()}
+
+
+class RouteLog:
+    """While active, records every MoE routing of the port
+    (``models/moe._Routes``): per call ``(capacity, expert ids (T, k),
+    slots (T * k,))`` on the host."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        calls, self._moe, self._routes = self.calls, moe, moe._Routes
+
+        class Recording(moe._Routes):
+            def __init__(self, params, cfg, x2, C):
+                super().__init__(params, cfg, x2, C)
+                calls.append((C, self.eflat.reshape(-1, self.k).cpu(), self.slot.cpu()))
+
+        moe._Routes = Recording
+        return self
+
+    def __exit__(self, *exc):
+        self._moe._Routes = self._routes
+
+
+def route_flips(a: RouteLog, b: RouteLog) -> tuple[int, int]:
+    """``(differing (token, choice) routes, routes)`` of two runs of the
+    same MoE calls."""
+    check(len(a.calls) == len(b.calls), f"{len(a.calls)} against {len(b.calls)} MoE calls")
+    return (sum(int((x[1] != y[1]).sum()) for x, y in zip(a.calls, b.calls)),
+            sum(x[1].numel() for x in a.calls))
 
 
 def flash_checks(torch, dev, rng, record, flash_cuda, gqa_attention_ref) -> None:
@@ -555,14 +640,19 @@ def attn_layers(cfg) -> int:
 
 
 def lm_serve(torch, cfg, model, params, reset_counts, counts, *, phase):
-    """Phases 3d and 3i: ``ServeEngine`` over LM_REQUESTS prompts, the last
-    one of the longest length, with the launch counts zeroed just before
-    the run and read just after.  Returns the counts and the engine."""
+    """Phases 3d, 3i and 3j: ``ServeEngine`` over LM_REQUESTS prompts, the
+    last one of the longest length, with the launch counts zeroed just
+    before the run and read just after.  Returns the counts and the
+    engine."""
     from repro_torch.serve.engine import Request, ServeEngine
+
+    from repro_torch.models.recurrent import MLSTM_CHUNK
 
     prompt_rng = np.random.default_rng(15)
     lens = prompt_rng.integers(LM_PROMPT_LEN[0], LM_PROMPT_LEN[1] + 1, LM_REQUESTS)
     lens[-1] = LM_PROMPT_LEN[1]
+    if "mlstm" in cfg.kinds():          # whole mLSTM chunks (LM_MODELS' comment)
+        lens = np.clip(lens // MLSTM_CHUNK * MLSTM_CHUNK, *LM_PROMPT_LEN)
     reqs = [Request(i, prompt_rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32),
                     max_new=LM_MAX_NEW) for i, n in enumerate(lens)]
     eng = ServeEngine(model, params, batch_slots=LM_SLOTS, s_cache=LM_S_CACHE)
@@ -604,8 +694,9 @@ def lm_serve(torch, cfg, model, params, reset_counts, counts, *, phase):
 
 
 def lm_launcher(torch, cfg, reset_counts, counts, argv, phase) -> None:
-    """Phases 3i and 4d: the launcher with ``argv`` and its own defaults
-    (16 short requests, 4 slots, a 128-token cache), serving ``cfg``."""
+    """Phases 3i, 3j and 4d: the launcher with ``argv`` and its own
+    defaults (16 short requests, 4 slots, a 128-token cache), serving
+    ``cfg``."""
     from repro_torch.launch import serve as launch_serve
 
     reset_counts()
@@ -622,12 +713,14 @@ def lm_launcher(torch, cfg, reset_counts, counts, argv, phase) -> None:
 
 def lm_cpu_check(torch, dev, cfg, params, n_layers, prompt, f32_tol, flash_cuda,
                  phase) -> None:
-    """Phases 3d and 3i: the first ``n_layers`` of a served model on the
-    card (bf16, the kernel) against the same weights on the CPU, in bf16
-    and in f32 (the plain versions): logits of a ``prompt``-token prefill
-    and LM_CPU_STEPS decode steps, the cache ``prompt + LM_CPU_STEPS`` long.
-    The card is held within LM_CPU_TOL of the CPU's bf16 and within
-    ``f32_tol`` of its f32."""
+    """Phases 3d, 3i and 3j: the first ``n_layers`` of a served model on
+    the card (bf16, the kernel) against the same weights on the CPU, in
+    bf16 and, unless ``f32_tol`` is None, in f32 (the plain versions):
+    logits of a ``prompt``-token prefill and LM_CPU_STEPS decode steps, the
+    cache ``prompt + LM_CPU_STEPS`` long.  The card is held within
+    LM_CPU_TOL of the CPU's bf16 and within ``f32_tol`` of its f32.  With
+    experts, the (token, choice) routes that differ from the card's are
+    counted and printed (a near tie may route apart)."""
     import dataclasses
 
     from repro_torch.models.model import Model
@@ -638,26 +731,28 @@ def lm_cpu_check(torch, dev, cfg, params, n_layers, prompt, f32_tol, flash_cuda,
            "layers": params["layers"][:n_layers]}
     models = {"card": (Model(short, device=dev), sub),
               "cpu bf16": (Model(short, device="cpu"),
-                           tree_to(sub, "cpu", torch.bfloat16)),
-              "cpu f32": (Model(dataclasses.replace(short, dtype="float32"),
-                                device="cpu"), tree_to(sub, "cpu", torch.float32))}
+                           tree_to(sub, "cpu", torch.bfloat16))}
+    if f32_tol is not None:
+        models["cpu f32"] = (Model(dataclasses.replace(short, dtype="float32"),
+                                   device="cpu"), tree_to(sub, "cpu", torch.float32))
     tok_rng = np.random.default_rng(16)
     toks = torch.from_numpy(tok_rng.integers(0, cfg.vocab_size, (1, prompt)))
     nxt = torch.from_numpy(tok_rng.integers(0, cfg.vocab_size, (LM_CPU_STEPS, 1, 1)))
     s_cache = prompt + LM_CPU_STEPS
-    logits = {}
+    logits, routes = {}, {}
     for what, (model, p) in models.items():
         before = flash_cuda.launches["flash_attn"]
-        out, cache = model.prefill(p, toks.to(model.device), s_cache)
-        steps = [out.float().cpu()]
-        if what == "card":
-            torch.cuda.synchronize()
-            check(flash_cuda.launches["flash_attn"] - before == attn_layers(short),
-                  f"{cfg.name}: card prefill did not run the flash kernel once "
-                  "per attention layer")
-        for t in nxt:
-            out, cache = model.decode_step(p, t.to(model.device), cache)
-            steps.append(out.float().cpu())
+        with RouteLog() as routes[what]:
+            out, cache = model.prefill(p, toks.to(model.device), s_cache)
+            steps = [out.float().cpu()]
+            if what == "card":
+                torch.cuda.synchronize()
+                check(flash_cuda.launches["flash_attn"] - before == attn_layers(short),
+                      f"{cfg.name}: card prefill did not run the flash kernel "
+                      "once per attention layer")
+            for t in nxt:
+                out, cache = model.decode_step(p, t.to(model.device), cache)
+                steps.append(out.float().cpu())
         logits[what] = steps
     check(all(bool(torch.isfinite(x).all()) for x in logits["card"]),
           f"{cfg.name}: non-finite card logits")
@@ -665,21 +760,29 @@ def lm_cpu_check(torch, dev, cfg, params, n_layers, prompt, f32_tol, flash_cuda,
     def errs(a, b):
         return [rel_err(x, y) for x, y in zip(logits[a], logits[b])]
 
-    same, gap = errs("card", "cpu bf16"), errs("card", "cpu f32")
-    check(max(same) <= LM_CPU_TOL,
-          f"{cfg.name}: card vs CPU bf16 logits rel err {max(same):.3e}")
-    check(max(gap) <= f32_tol,
-          f"{cfg.name}: card bf16 vs CPU f32 logits rel err {max(gap):.3e}")
-
     def fmt(e):
         return ", ".join(f"{x:.3e}" for x in e)
 
+    same = errs("card", "cpu bf16")
+    check(max(same) <= LM_CPU_TOL,
+          f"{cfg.name}: card vs CPU bf16 logits rel err {max(same):.3e}")
+    f32 = "no f32 run"
+    if f32_tol is not None:
+        gap = errs("card", "cpu f32")
+        check(max(gap) <= f32_tol,
+              f"{cfg.name}: card bf16 vs CPU f32 logits rel err {max(gap):.3e}")
+        f32 = (f"card bf16 vs CPU f32 {fmt(gap)} (tol {f32_tol:g}); CPU bf16 vs "
+               f"CPU f32 {fmt(errs('cpu bf16', 'cpu f32'))}")
+    flips = ""
+    if cfg.n_experts:
+        flips = "; routes differing from the card's: " + ", ".join(
+            "{} {} of {}".format(what, *route_flips(routes["card"], log))
+            for what, log in routes.items() if what != "card")
     print(f"phase {phase}: {cfg.name}: {n_layers} full-width layers "
           f"{short.kinds()}, {prompt}-token prompt, logits of the prefill and "
           f"{LM_CPU_STEPS} decode steps: card bf16 vs CPU bf16 max rel err "
-          f"{fmt(same)} (tol {LM_CPU_TOL:g}); card bf16 vs CPU f32 {fmt(gap)} "
-          f"(tol {f32_tol:g}); CPU bf16 vs CPU f32 "
-          f"{fmt(errs('cpu bf16', 'cpu f32'))}; in {time.perf_counter() - t0:.1f} s")
+          f"{fmt(same)} (tol {LM_CPU_TOL:g}); {f32}{flips}; in "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 def lm_family(torch, dev, rng, arch, reset_counts, counts, flash_cuda,
@@ -705,10 +808,13 @@ def lm_family(torch, dev, rng, arch, reset_counts, counts, flash_cuda,
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     w_bytes = sum(x.numel() * x.element_size() for x in leaves(params))
+    moe = (f"{cfg.n_experts} experts top-{cfg.top_k}, capacity factor "
+           f"{cfg.capacity_factor:g}, shared expert {cfg.shared_expert}, dense "
+           f"MLP {cfg.moe_dense_residual}, " if cfg.n_experts else "")
     print(f"phase {phase}: {arch}: {cfg.num_layers} of {full.num_layers} layers "
           f"({cfg.block_pattern} repeated), d_model {cfg.d_model}, "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, "
-          f"window {cfg.window}, softcap {cfg.logit_softcap:g}, QKV bias "
+          f"{moe}window {cfg.window}, softcap {cfg.logit_softcap:g}, QKV bias "
           f"{cfg.qkv_bias}, {cfg.kv_cache_dtype} KV cache, vocab {cfg.vocab_size} "
           f"(padded {cfg.vocab_pad}): {w_bytes / 1e9:.3f} GB of parameters on "
           f"the card, random from seed 0, in {time.perf_counter() - t0:.1f} s")
@@ -734,6 +840,8 @@ def lm_family(torch, dev, rng, arch, reset_counts, counts, flash_cuda,
     if n_check:
         lm_cpu_check(torch, dev, cfg, params, n_check, check_prompt, f32_tol,
                      flash_cuda, phase)
+    if cfg.n_experts:
+        moe_checks(torch, dev, rng, cfg, model, params, phase)
 
     for n in LM_TIMED_PROMPTS:
         toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n))).to(dev)
@@ -745,19 +853,84 @@ def lm_family(torch, dev, rng, arch, reset_counts, counts, flash_cuda,
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_SLOTS, 1))).to(dev)
     t = time_ms(torch, lambda: model.decode_step(params, toks, cache))
     # the cache entries a step reads: the live slots of each K/V ring or
-    # cache (and their scales), every recurrent state
-    live = sum(x.numel() * x.element_size() * min(LM_S_CACHE // 2 + 1, x.shape[1])
-               // x.shape[1] for slot in cache["layers"] for name, x in slot.items()
-               if name in ("k", "v", "scale"))
-    live += sum(x.numel() * x.element_size() for slot in cache["layers"]
-                for name, x in slot.items() if name in ("h", "conv"))
+    # cache (and their scales), every recurrent state whole
+    live = sum(x.numel() * x.element_size() * (
+        min(LM_S_CACHE // 2 + 1, x.shape[1]) / x.shape[1]
+        if name in ("k", "v", "scale") else 1)
+        for slot in cache["layers"] for name, x in slot.items())
+    routed = ""
+    if cfg.n_experts:
+        # the step reads every expert (the reference's arithmetic); the least
+        # it needs is the experts its tokens were routed to, counted here
+        with RouteLog() as log:
+            model.decode_step(params, toks, dict(cache, layers=[
+                {k: v.clone() for k, v in slot.items()} for slot in cache["layers"]]))
+        per_expert = 3 * cfg.d_model * cfg.d_ff * 2
+        need = w_bytes - per_expert * cfg.n_experts * len(log.calls) + per_expert * sum(
+            len(set(eid.flatten().tolist())) for _, eid, _ in log.calls)
+        routed = (f"; routed experts only {need / HBM_BYTES_PER_S * 1e3:.4f} ms "
+                  f"({need / 1e9:.3f} GB: experts routed per layer "
+                  f"{[len(set(eid.flatten().tolist())) for _, eid, _ in log.calls]} "
+                  f"of {cfg.n_experts})")
     print(f"phase 4d: decode {arch} ({cfg.num_layers} layers) {LM_SLOTS} slots at "
           f"position ~{LM_S_CACHE // 2}: {fmt_ms(t)} per step; weight-read bound "
-          f"{w_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({w_bytes / 1e9:.3f} GB), "
-          f"with the live cache {(w_bytes + live) / HBM_BYTES_PER_S * 1e3:.4f} ms")
+          f"{w_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({w_bytes / 1e9:.3f} GB, all "
+          f"weights), with the live cache {(w_bytes + live) / HBM_BYTES_PER_S * 1e3:.4f}"
+          f" ms{routed}")
     print(f"phase 4d: profile decode step {arch} {LM_SLOTS} slots: "
           + device_busy(torch, lambda: model.decode_step(params, toks, cache)))
     return {"launches": launches, "attn_layers": attn_layers(cfg)}
+
+
+def moe_checks(torch, dev, rng, cfg, model, params, phase) -> None:
+    """Phase 3j for an MoE arch: the routes past capacity in a
+    LM_PROMPT_LEN[1]-token prefill, per layer; for EP_ARCH its first MoE
+    layer on the expert-parallel path on a world of one NCCL rank (the
+    FSDP all-gather and both all-to-alls run), held against the local path
+    on the same ``(1, S, D)`` input."""
+    from repro_torch.launch.mesh import destroy_process_group, make_mesh
+    from repro_torch.models.moe import moe_apply, shard_moe_params
+
+    S = LM_PROMPT_LEN[1]
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, S))).to(dev)
+    with RouteLog() as log:
+        model.prefill(params, toks, LM_S_CACHE)
+    over = []
+    for layer, (C, eid, slot) in enumerate(log.calls):
+        dropped = eid.flatten()[slot == C]
+        per = torch.bincount(dropped, minlength=cfg.n_experts)
+        over.append(f"layer {layer}: {int((slot == C).sum())} of {slot.numel()} "
+                    f"pairs past C={C} ({int((per > 0).sum())} experts over, most "
+                    f"{int(per.max())} from expert {int(per.argmax())})")
+    print(f"phase {phase}: {cfg.name} prefill S={S}, routes past capacity: "
+          + "; ".join(over))
+    if cfg.name != EP_ARCH:
+        return
+    ffn = params["layers"][0]["ffn"]
+    x = torch.from_numpy(rng.standard_normal((1, S, cfg.d_model), dtype=np.float32)
+                         ).to(dev, torch.bfloat16)
+    t0 = time.perf_counter()
+    want, want_aux = moe_apply(ffn, cfg, x)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    try:
+        shard = shard_moe_params(ffn, mesh)
+        got, aux = moe_apply(shard, cfg, x, mesh=mesh)
+        torch.cuda.synchronize()
+        ep_ms = time_ms(torch, lambda: moe_apply(shard, cfg, x, mesh=mesh))
+        del shard
+    finally:
+        destroy_process_group()
+    local_ms = time_ms(torch, lambda: moe_apply(ffn, cfg, x))
+    err = rel_err(got.float(), want.float())
+    check(bool(torch.isfinite(got).all()), f"{cfg.name}: non-finite EP output")
+    check(err <= EP_TOL, f"{cfg.name}: expert parallel vs local rel err {err:.3e}")
+    check(abs(float(aux) - float(want_aux)) <= 1e-6,
+          f"{cfg.name}: EP aux {float(aux)} vs local {float(want_aux)}")
+    print(f"phase {phase}: {cfg.name} MoE layer 0 expert parallel on one NCCL "
+          f"rank, (1, {S}, {cfg.d_model}) bf16: rel err {err:.3e} against the "
+          f"local path (tol {EP_TOL:g}), aux {float(aux):.6f} / "
+          f"{float(want_aux):.6f}; {fmt_ms(ep_ms)} per call, local "
+          f"{fmt_ms(local_ms)}; in {time.perf_counter() - t0:.1f} s")
 
 
 def attention_library(torch, cap: float):
@@ -1836,7 +2009,7 @@ def main() -> int:
     from repro_torch.core.packed import (build_packed_blocked_layout,
                                          level_table, pack_blocked_values,
                                          permute_rhs, walk_geometry)
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, smoke_config
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attn import cuda as flash_cuda
     from repro_torch.kernels.flash_attn.ref import gqa_attention_ref
@@ -2485,18 +2658,39 @@ def main() -> int:
     # 3i: gemma3, RecurrentGemma and qwen1.5 at full width, then the
     # launcher's default
     t0 = time.perf_counter()
-    for arch in [a for a in LM_MODELS if a != LM_ARCH]:
+    slice2 = [a for a in LM_MODELS if a not in (LM_ARCH, *LM_SLICE3)]
+    for arch in slice2:
         t1 = time.perf_counter()
         families[arch] = lm_family(torch, dev, rng, arch, reset_counts, counts,
                                    flash_cuda, "3i")
         torch.cuda.empty_cache()
         print(f"phase 3i: {arch} in {time.perf_counter() - t1:.1f} s; host "
               f"memory {host_rss_gb():.1f} GB resident")
-    path_launches["families"] = {name: sum(f["launches"][name] for a, f in families.items()
-                                           if a != LM_ARCH) for name in KERNELS}
+    path_launches["families"] = {name: sum(families[a]["launches"][name] for a in slice2)
+                                 for name in KERNELS}
     lm_launcher(torch, get_config("gemma3-1b"), reset_counts, counts, [], "3i")
     print(f"phase 3i: LM families in {time.perf_counter() - t0:.1f} s; launches "
           f"{json.dumps(path_launches['families'])}")
+    # 3j: llama4-scout and arctic (mixture of experts) and xlstm-350m, then
+    # the launcher: xlstm-350m at full size, the MoE archs at their smoke
+    # size (their full configs do not fit the card)
+    t0 = time.perf_counter()
+    for arch in LM_SLICE3:
+        t1 = time.perf_counter()
+        families[arch] = lm_family(torch, dev, rng, arch, reset_counts, counts,
+                                   flash_cuda, "3j")
+        torch.cuda.empty_cache()
+        print(f"phase 3j: {arch} in {time.perf_counter() - t1:.1f} s; host "
+              f"memory {host_rss_gb():.1f} GB resident")
+    path_launches["slice3"] = {name: sum(families[a]["launches"][name] for a in LM_SLICE3)
+                               for name in KERNELS}
+    for arch in LM_SLICE3:
+        moe = get_config(arch).n_experts > 0
+        lm_launcher(torch, smoke_config(arch) if moe else get_config(arch),
+                    reset_counts, counts, ["--arch", arch] + (["--smoke"] if moe else []),
+                    "3j")
+    print(f"phase 3j: MoE and xLSTM in {time.perf_counter() - t0:.1f} s; launches "
+          f"{json.dumps(path_launches['slice3'])}")
     main_launches = {name: sum(p[name] for p in path_launches.values())
                      for name in KERNELS}
     for name in KERNELS:
@@ -2751,6 +2945,19 @@ def main() -> int:
                   f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs, "
                   f"{len(flay.spans) - 1} grid barriers per solve")
         extra = None
+        if m > 1:
+            # the transpose batch (phase 4's pallas_fused solve, when it ran)
+            # beside its bound and the library's solve of the same m RHS
+            bT_m = torch.from_numpy(rng.standard_normal((L.n, m))).to(dev)
+            tb_lib = library(f"torch.triangular_solve on the transpose's CSR, m={m}",
+                             lambda: torch.triangular_solve(bT_m, LT_csr, upper=True))
+            tb_ms = solve_ms.get(("pallas_fused", dt, m, True))
+            print(f"phase 4: kernel sptrsv_fused_batched transpose f64 m={m}: "
+                  f"{'not run' if tb_ms is None else f'{tb_ms:.4f} ms'} per solve, "
+                  f"bound {bound[0]:.6f} ms ({bound[1]}), library "
+                  f"{'n/a' if tb_lib is None else f'{tb_lib:.4f} ms'}")
+            extra = {"transpose": {"ms": tb_ms, "bound_ms": bound[0],
+                                   "bound_by": bound[1], "library_ms": tb_lib}}
         if m == 1:
             t_lib = library("torch.triangular_solve on the transpose's CSR",
                             lambda: torch.triangular_solve(bT, LT_csr, upper=True))
@@ -2856,6 +3063,8 @@ def main() -> int:
     capped, uncapped = (flash_times(torch, dev, rng, f"gemma3-12b prefill{tag}", sh,
                                     flash_cuda, gqa_attention_ref)
                         for tag, sh in (("", shape), (" uncapped", shape[:-1] + (0.0,))))
+    g7 = flash_times(torch, dev, rng, "arctic prefill", FLASH_CASES["arctic prefill"],
+                     flash_cuda, gqa_attention_ref)
     report.append({
         "name": "flash_attn", "route": "cuda", "source": KERNELS["flash_attn"][0],
         "replaces": KERNELS["flash_attn"][1],
@@ -2870,7 +3079,11 @@ def main() -> int:
             "plain_ms": capped["plain"][0], "bound_ms": capped["bound"][0],
             "bound_by": capped["bound"][1], "library_ms": capped["library_ms"],
             "ms_uncapped": uncapped["ms"][0],
-            "library_ms_uncapped": uncapped["library_ms"]}})
+            "library_ms_uncapped": uncapped["library_ms"]},
+        "group7_case": {
+            "shape": list(FLASH_CASES["arctic prefill"][:5]), "ms": g7["ms"][0],
+            "plain_ms": g7["plain"][0], "bound_ms": g7["bound"][0],
+            "bound_by": g7["bound"][1], "library_ms": g7["library_ms"]}})
     lm_launcher(torch, get_config(LM_ARCH), reset_counts, counts,
                 ["--arch", LM_ARCH], "4d")
     print(f"phase 4d: LM times and launcher in {time.perf_counter() - t0:.1f} s")

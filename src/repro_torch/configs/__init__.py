@@ -2,7 +2,8 @@
 
 ``get("<arch-id>")`` accepts the public dashed id (e.g. "granite-3-8b").
 Every id of the JAX package is listed; the port serves granite, gemma3,
-qwen1.5 and recurrentgemma (:mod:`repro_torch.models.model`).
+qwen1.5, recurrentgemma, llama4-scout, arctic and xlstm
+(:mod:`repro_torch.models.model`).
 """
 from repro_torch.models.config import ARCHS, get_config, smoke_config
 

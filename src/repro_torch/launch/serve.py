@@ -7,9 +7,12 @@ request stream, reporting throughput.
 
 The flags are those of the JAX package's launcher, plus ``--device``.  The
 default arch is ``gemma3-1b``, as the JAX launcher's; granite-3-8b,
-gemma3-12b, qwen1.5-32b and recurrentgemma-2b run too, the other archs
-raise ``NotImplementedError``, as does ``--ckpt`` until checkpoints are
-ported.  Parameters are random, drawn from seed 0 on the chosen device.
+gemma3-12b, qwen1.5-32b, recurrentgemma-2b, xlstm-350m,
+llama4-scout-17b-a16e and arctic-480b run too (the MoE archs' full
+configs do not fit one card: run them with ``--smoke``); whisper-medium
+and paligemma-3b raise ``NotImplementedError``, as does ``--ckpt`` until
+checkpoints are ported.  Parameters are random, drawn from seed 0 on the
+chosen device.
 """
 from __future__ import annotations
 

@@ -2,9 +2,9 @@
 ``models/config.py`` (pure Python, held equal to it by the tests).
 
 ``block_pattern`` is cycled over ``num_layers``.  The port runs the
-families whose blocks are ``"attn"``, ``"attn_local"`` or ``"rec"`` (no
-experts, no encoder or prefix); :class:`repro_torch.models.model.Model`
-raises for the others.
+families whose blocks are ``"attn"``, ``"attn_local"``, ``"rec"``,
+``"mlstm"`` or ``"slstm"``, with or without experts (no encoder or
+prefix); :class:`repro_torch.models.model.Model` raises for the others.
 """
 from __future__ import annotations
 

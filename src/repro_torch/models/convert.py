@@ -5,9 +5,10 @@ a leading ``reps`` axis (``params["blocks"]["p<pos>"]``) with the pattern's
 remainder in ``params["tail"]``.  :func:`from_jax` takes that pytree as
 numpy arrays (``jax.tree.map(np.asarray, params)``) and returns the port's
 parameters: one entry per layer, in layer order (the pattern's full
-repetitions, then its tail), weights in the compute dtype and norm scales
-and the RG-LRU's ``lam`` in f32, on ``device`` (the card unless the caller
-asks for ``"cpu"``, as every entry point of the port).
+repetitions, then its tail; an MoE layer's expert stacks ``(E, D, F)``),
+weights in the compute dtype and the ``F32_LEAVES`` in f32, on ``device``
+(the card unless the caller asks for ``"cpu"``, as every entry point of
+the port).
 """
 from __future__ import annotations
 
@@ -20,8 +21,9 @@ from .model import DTYPES, check_supported
 
 __all__ = ["from_jax"]
 
-# leaves the JAX package uses in f32 whatever the compute dtype
-F32_LEAVES = ("scale", "lam")
+# leaves the JAX package uses in f32 whatever the compute dtype: norm
+# scales, the RG-LRU's lam and the sLSTM's recurrent matrices
+F32_LEAVES = ("scale", "lam", "rz", "ri", "rf", "ro")
 
 
 def _tensors(tree, dtype: torch.dtype, device, *, rep=None):

@@ -1,7 +1,8 @@
 """Layer library of the port's LM serving path: the parts of the JAX
 package's ``models/layers.py`` that the ported families run (causal and
 sliding-window attention with an optional score softcap, QKV bias and an
-int8 KV cache, the SwiGLU MLP, the tied embedding), in torch.
+int8 KV cache, the SwiGLU MLP, the tied embedding), in torch.  The
+experts are in :mod:`.moe`, the recurrent blocks in :mod:`.recurrent`.
 
 Parameters are plain dicts of tensors with the JAX names.  Weights are held
 in the compute dtype (bf16 on the card) and norm scales in f32; the casts
@@ -49,12 +50,27 @@ class Init:
         self.dtype = dtype
         self.device = device
 
-    def normal(self, shape, std: float) -> torch.Tensor:
+    def normal(self, shape, std: float,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """Normal values of ``std`` in ``dtype`` (the compute dtype by
+        default)."""
+        dtype = dtype or self.dtype
         if self.device.type == "meta":
-            return torch.empty(shape, dtype=self.dtype, device="meta")
+            return torch.empty(shape, dtype=dtype, device="meta")
         g = self.generator
         w = torch.randn(shape, generator=g, device=g.device, dtype=torch.float32)
-        return w.mul_(std).to(self.device, self.dtype)
+        return w.mul_(std).to(self.device, dtype)
+
+    def stacked(self, n: int, shape, std: float) -> torch.Tensor:
+        """``n`` slices of :meth:`normal` ``(n, *shape)``, drawn one slice at
+        a time, so that the f32 draw holds one slice (an expert stack of
+        arctic is 17.9 GB in f32, 8.9 GB in bf16)."""
+        if self.device.type == "meta":
+            return self.normal((n, *shape), std)
+        out = torch.empty((n, *shape), dtype=self.dtype, device=self.device)
+        for i in range(n):
+            out[i] = self.normal(shape, std)
+        return out
 
     def zeros(self, shape, dtype: torch.dtype = torch.float32) -> torch.Tensor:
         return torch.zeros(shape, dtype=dtype, device=self.device)
@@ -264,9 +280,12 @@ def init_mlp(init: Init, cfg: ModelConfig) -> dict:
     }
 
 
-def mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(params: dict, x: torch.Tensor, *, residual: bool = True) -> torch.Tensor:
+    """The pre-norm SwiGLU MLP, plus ``x`` with ``residual`` (the MoE's
+    shared expert and dense MLP add their output themselves)."""
     h = rms_norm(params["ln"], x)
-    return x + dense(params["wo"], F.silu(dense(params["wg"], h)) * dense(params["wi"], h))
+    y = dense(params["wo"], F.silu(dense(params["wg"], h)) * dense(params["wi"], h))
+    return x + y if residual else y
 
 
 # --------------------------------------------------------------------------

@@ -5,8 +5,8 @@ package's ``serve/engine.py``).
 A fixed pool of ``B`` decode slots; finished sequences are replaced from
 the admission queue each step.  Per-slot state lives in one batched KV
 cache; a joining request is prefilled alone (batch 1) and every leaf of
-its per-layer cache (``k``, ``v``, ``scale``, ``h``, ``conv``) is copied
-into its slot.  As in the JAX engine, every slot decodes at one
+its per-layer cache (``k``, ``v``, ``scale``; the recurrent states ``h``,
+``C``, ``n``, ``m``, ``c``; ``conv``) is copied into its slot.  As in the JAX engine, every slot decodes at one
 shared position, the largest ``idx`` of the requests joined so far, so a
 slot that joins later with a shorter prompt decodes past its own length.
 

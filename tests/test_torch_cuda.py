@@ -2,9 +2,11 @@
 on the same CUDA tensors; the solver's kernel strategies, with and without
 equation rewriting, against the plain ``levelset`` executor; the scatter
 layout's level step and its blocked solve's block applies on a path; the
-blocked solve against a dense solve; the flash kernel's score softcap; and
-each LM family's prefill and decode on the card against the same model on
-the CPU.  Marked ``cuda``: they skip where no GPU is
+blocked solve against a dense solve; the flash kernel's score softcap and
+its query groups of 5 and 7 (llama4-scout, arctic); each LM family's
+prefill and decode on the card against the same model on the CPU; and the
+MoE layer, locally and expert parallel on one NCCL rank, against its CPU
+run.  Marked ``cuda``: they skip where no GPU is
 visible, and run on a machine with one via
 
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest tests/test_torch_cuda.py
@@ -648,6 +650,16 @@ def test_flash_softcap_matches_plain(card, dtype, hd, window, cap):
         assert _rel(capped, uncapped) > FLASH_TOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Hq", [40, 56], ids=["llama4-scout", "arctic"])
+def test_flash_query_groups_of_5_and_7(card, Hq, dtype):
+    """The MoE archs' attention: 40 or 56 query heads over 8 KV heads of
+    128, causal and not, ragged and whole tiles."""
+    for S in (300, 1024):
+        for causal in (True, False):
+            _flash_case(card, dtype, 1, S, S, Hq, 8, 128, seed=Hq + S, causal=causal)
+
+
 def test_flash_rejects_a_negative_softcap(card):
     q = torch.zeros((1, 64, 2, 64), device=card)
     for cap in (-1.0, float("nan"), float("inf")):
@@ -725,16 +737,17 @@ def test_lm_prefill_on_card_matches_cpu(card):
 
 
 @pytest.mark.parametrize("arch", ["gemma3-1b", "gemma3-12b", "qwen1.5-32b",
-                                  "recurrentgemma-2b"])
+                                  "recurrentgemma-2b", "llama4-scout-17b-a16e",
+                                  "arctic-480b", "xlstm-350m"])
 def test_lm_family_on_card_matches_cpu(card, arch):
-    """Each family of the second LM slice at its smoke size (f32): prefill
+    """Each family of the later LM slices at its smoke size (f32): prefill
     (a prompt longer than the window of 8) and three decode steps on the
-    card (the flash kernel, with gemma3's softcap) against the CPU (its
-    plain version), same weights and tokens; then a ServeEngine of 2 slots
-    over 3 requests on the card.  Tolerance 8e-3: the bf16 KV and conv
-    caches and qwen's int8 cache round in both, and an f32 difference of
-    one rounding step can round a cached entry one bf16 step (up to 2^-7)
-    or one int8 step (1/127) apart."""
+    card (the flash kernel, with gemma3's softcap; the experts; the mLSTM
+    and sLSTM) against the CPU (its plain version), same weights and
+    tokens; then a ServeEngine of 2 slots over 3 requests on the card.
+    Tolerance 8e-3: the bf16 KV and conv caches and qwen's int8 cache round
+    in both, and an f32 difference of one rounding step can round a cached
+    entry one bf16 step (up to 2^-7) or one int8 step (1/127) apart."""
     from repro_torch.serve.engine import Request, ServeEngine
 
     cfg = smoke_config(arch)
@@ -767,6 +780,48 @@ def test_lm_family_on_card_matches_cpu(card, arch):
     torch.cuda.synchronize()
     assert all(r.done and len(r.out) == 11 for r in reqs)
     assert flash_cuda.launches["flash_attn"] - before == n_attn * eng.prefills == 3 * n_attn
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "arctic-480b"])
+def test_moe_layer_on_card_matches_cpu(card, arch):
+    """The MoE layer at its smoke size, f32: the same (token, choice)
+    routes on the card as on the CPU, ``y`` within 1e-5 (the same f32
+    products summed in another order) and ``aux`` within 1e-6; then the
+    expert-parallel path on a world of one NCCL rank (the all-gather and
+    both all-to-alls run) equal to the local path on the card."""
+    from repro_torch.launch.mesh import destroy_process_group, make_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.layers import Init
+
+    cfg = smoke_config(arch)
+    params = moe.init_moe(Init(torch.Generator().manual_seed(0), torch.float32,
+                               torch.device("cpu")), cfg)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 40, cfg.d_model),
+                                                                  dtype=np.float32))
+
+    def to(tree, dev):
+        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev)
+                for k, v in tree.items()}
+
+    out, routes = {}, {}
+    for dev in (torch.device("cpu"), card):
+        p, xd = to(params, dev), x.to(dev)
+        h = moe.rms_norm(p["ln"], xd).reshape(-1, cfg.d_model)
+        r = moe._Routes(p, cfg, h, moe.capacity(h.shape[0], cfg))
+        routes[dev.type] = (r.eflat.cpu(), r.slot.cpu())
+        out[dev.type] = moe.moe_apply(p, cfg, xd)
+    assert all(torch.equal(a, b) for a, b in zip(routes["cuda"], routes["cpu"]))
+    y, aux = out["cuda"]
+    assert y.is_cuda and _rel(y.cpu(), out["cpu"][0]) <= 1e-5
+    assert abs(float(aux) - float(out["cpu"][1])) <= 1e-6
+    mesh = make_mesh((1, 1), ("data", "model"))
+    try:
+        p = to(params, card)
+        got, got_aux = moe.moe_apply(moe.shard_moe_params(p, mesh), cfg, x.to(card),
+                                     mesh=mesh)
+    finally:
+        destroy_process_group()
+    assert _rel(got, y) <= 1e-6 and abs(float(got_aux) - float(aux)) <= 1e-7
 
 
 # --------------------------------------------------------------------------

@@ -33,7 +33,9 @@ CHECK = (
     "repro_torch.bench.preconditioner, repro_torch.bench.rewrite_planner, "
     "repro_torch.core.recurrence, repro_torch.core.dist, "
     "repro_torch.launch.mesh, repro_torch.bench.dist_solve, "
-    "repro_torch.bench.lm_step, sys; "
+    "repro_torch.bench.lm_step, repro_torch.models.moe, "
+    "repro_torch.configs.llama4_scout_17b_a16e, repro_torch.configs.arctic_480b, "
+    "repro_torch.configs.xlstm_350m, sys; "
     "from repro_torch.serve import (ServeEngine, Request, SolveEngine, "
     "SolveRequest, SolverRegistry, SolverEntry, pattern_key, SolveService, "
     "TenantState, LatencyHistogram); "

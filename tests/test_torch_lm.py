@@ -33,7 +33,7 @@ from repro_torch.configs import ARCH_IDS, get, smoke_config
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import config as port_config
 from repro_torch.models import layers as pl
-from repro_torch.models.convert import from_jax
+from repro_torch.models.convert import F32_LEAVES, from_jax
 from repro_torch.models.model import DTYPES, Model
 from repro_torch.serve.engine import Request, ServeEngine
 
@@ -78,9 +78,9 @@ def test_config_copy_matches_jax(arch):
     assert get(arch).params_B() == jax_config.get_config(arch).params_B()
 
 
-UNPORTED_ARCHS = ("whisper-medium", "paligemma-3b", "xlstm-350m",
-                  "llama4-scout-17b-a16e", "arctic-480b")
-PORTED_ARCHS = ("gemma3-1b", "gemma3-12b", "qwen1.5-32b", "recurrentgemma-2b")
+UNPORTED_ARCHS = ("whisper-medium", "paligemma-3b")
+PORTED_ARCHS = ("gemma3-1b", "gemma3-12b", "qwen1.5-32b", "recurrentgemma-2b",
+                "xlstm-350m", "llama4-scout-17b-a16e", "arctic-480b")
 
 
 @pytest.mark.parametrize("arch", UNPORTED_ARCHS)
@@ -95,9 +95,10 @@ def test_every_arch_is_ported_or_raises():
 
 @pytest.mark.parametrize("arch", PORTED_ARCHS)
 def test_ported_archs_build_on_cpu(arch):
-    """The four archs of the second LM slice build, init and run a prefill
-    and a decode step at their smoke size (the parity tests are in
-    ``tests/test_torch_lm_gemma3.py`` and ``test_torch_lm_recurrent.py``)."""
+    """The archs of the later LM slices build, init and run a prefill and a
+    decode step at their smoke size (the parity tests are in
+    ``tests/test_torch_lm_gemma3.py``, ``test_torch_lm_recurrent.py``,
+    ``test_torch_lm_moe.py`` and ``test_torch_lm_xlstm.py``)."""
     cfg = smoke_config(arch)
     model = Model(cfg, device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
@@ -124,8 +125,9 @@ def _leaf_shapes(tree, prefix=()):
 def test_param_shapes_match_jax_on_meta(arch):
     """At full size, with nothing allocated: the port's parameters on the
     meta device against ``jax.eval_shape`` of the JAX init, leaf for leaf
-    (the stacked ``reps`` axis taken off); weights bf16, norm scales and
-    ``lam`` f32."""
+    (the stacked ``reps`` axis taken off); weights bf16, the leaves the JAX
+    package uses in f32 (norm scales, ``lam``, the sLSTM's recurrent
+    matrices) f32."""
     cfg = get(arch)
     port = Model(cfg, device="meta").init()
     want = jax.eval_shape(JaxModel(jax_config.get_config(arch)).init, jax.random.key(0))
@@ -141,17 +143,18 @@ def test_param_shapes_match_jax_on_meta(arch):
         assert got.keys() == ref.keys()
         for path, (shape, dtype) in got.items():
             assert shape == ref[path][0], path
-            assert dtype == ("float32" if path[-1] in ("scale", "lam") else "bfloat16"), path
+            assert dtype == ("float32" if path[-1] in F32_LEAVES else "bfloat16"), path
     for name in ("embed", "final_ln"):
         got, ref = _leaf_shapes(port[name]), _leaf_shapes(want[name])
         assert {k: v[0] for k, v in got.items()} == {k: v[0] for k, v in ref.items()}
 
 
-@pytest.mark.parametrize("arch", ["gemma3-1b", "recurrentgemma-2b"])
+@pytest.mark.parametrize("arch", ["gemma3-1b", "recurrentgemma-2b", "xlstm-350m"])
 def test_from_jax_pattern_with_tail(arch):
     """Two repetitions of a longer pattern and a tail of two: layer ``r *
     P + pos`` is slice ``r`` of block ``p<pos>``, then the tail in order;
-    bf16 weights, f32 norm scales and ``lam``."""
+    bf16 weights, the ``F32_LEAVES`` (norm scales, ``lam``, the sLSTM's
+    recurrent matrices) f32."""
     cfg = dataclasses.replace(smoke_config(arch), dtype="bfloat16")
     P = len(cfg.block_pattern)
     cfg = dataclasses.replace(cfg, num_layers=2 * P + 2)
@@ -169,7 +172,7 @@ def test_from_jax_pattern_with_tail(arch):
                 same(port[key], val)
                 continue
             t = port[key]
-            assert t.dtype == (torch.float32 if key in ("scale", "lam") else torch.bfloat16)
+            assert t.dtype == (torch.float32 if key in F32_LEAVES else torch.bfloat16)
             np.testing.assert_array_equal(
                 t.float().numpy(),
                 torch.from_numpy(np.array(val, np.float32)).to(t.dtype).float().numpy())
