@@ -7,18 +7,20 @@ paper's lung2 (``lung2_like(scale=1.0)``:
 same row count (``banded_lower(110592, bandwidth=24, fill=1.0)``, the JAX
 blocked benchmark's band) and on a band whose panels are too wide to
 stage (``banded_lower(8192, bandwidth=300, fill=1.0)``), and the LM
-serving path with granite-3-8b at full width (10 of 40 layers, random
-weights from a seed), then gemma3-1b, recurrentgemma-2b, gemma3-12b (6 of
-48 layers) and qwen1.5-32b (8 of 64 layers), then llama4-scout (8 of 48
-layers), arctic (2 of 35 layers) and xlstm-350m (24 layers) at full
-width.
+serving path at full width, random weights from a seed: granite-3-8b (4
+of 40 layers), then gemma3-1b (6 of 26), recurrentgemma-2b (3 of 26),
+gemma3-12b (6 of 48) and qwen1.5-32b (2 of 64), then llama4-scout (2 of
+48), arctic (1 of 35) and xlstm-350m (8 of 24), then whisper-medium and
+paligemma-3b at full depth.
 
     python3 chip_smoke.py
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
 1. print the card's name and power limit; build the CUDA kernels from
-   ``src/repro_torch/kernels/csrc`` with nvcc, one process per source;
+   ``src/repro_torch/kernels/csrc`` with nvcc, one process per source, in
+   the background while the host generates the matrices and builds the
+   solvers and layouts;
    count the tensor-core (``HMMA``) instructions in the flash library's
    SASS, which must not be 0;
 2. hold each of the thirteen kernel entry points against its plain torch
@@ -38,8 +40,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    attention in bf16/f32 at granite's prefill shape, a ragged
    sliding-window case, each head-dim template 64/128/256, and gemma3-1b's
    and gemma3-12b's prefill shapes with the score softcap of 30, the
-   latter at head dim 240 under the 256 template, and llama4-scout's and
-   arctic's, query groups of 5 and 7);
+   latter at head dim 240 under the 256 template, llama4-scout's and
+   arctic's, query groups of 5 and 7, whisper-medium's encoder (full) and
+   cross-attention (full, 432 queries over 1,500 keys), and paligemma-3b's
+   prefill with its prefix of 256);
 3. the paths, each with the launch counts zeroed just before and read just
    after, every kernel of the path launched:
    a. ``SpTRSV.build_pair`` for ``pallas_level``, ``pallas_level`` +
@@ -59,7 +63,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
       the host, and ``refresh``; one blocked-walk launch per solve, no
       SpMV or per-segment apply launch;
    small matrices of every path are held against a dense solve first;
-   d. granite-3-8b (10 of 40 layers) served by ``ServeEngine`` (4 slots, a
+   d. granite-3-8b (4 of 40 layers) served by ``ServeEngine`` (4 slots, a
       2,048-token cache,
       8 requests with prompts of 512-2,048 tokens, 16 new tokens each):
       every request finishes, every logit is finite, and the flash kernel
@@ -131,31 +135,43 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    i. the second LM slice's families at full width, random bf16 weights
       from seed 0, each served as granite in d (4 slots, a 2,048-token
       cache, 8 prompts of 512-2,048 tokens, the last 2,048, 16 new tokens):
-      gemma3-1b (26 layers, 5:1 local:global, softcap), recurrentgemma-2b
-      (26 layers, RG-LRU on ``doubling`` and local attention), gemma3-12b
-      (6 of 48 layers) and qwen1.5-32b (8 of 64 layers, QKV bias, int8 KV
-      cache): every request done, finite logits, one flash launch per
-      attention layer and prefill, the local rings wrapped, qwen's cache
-      int8 with f32 scales; the first pattern repetition of gemma3-1b (6
-      layers, a 1,100-token prompt), recurrentgemma-2b (3 layers, 512) and
-      qwen1.5-32b (2 layers, 512) on the card (bf16, the kernel) against
+      gemma3-1b (6 of 26 layers, 5:1 local:global, softcap),
+      recurrentgemma-2b (3 of 26 layers, RG-LRU on ``doubling`` and local
+      attention), gemma3-12b (6 of 48 layers) and qwen1.5-32b (2 of 64
+      layers, QKV bias, int8 KV cache): every request done, finite logits,
+      one flash launch per attention layer and prefill, the local rings
+      wrapped, qwen's cache int8 with f32 scales; the first pattern
+      repetition of gemma3-1b (6 layers, a 1,100-token prompt),
+      recurrentgemma-2b (3 layers, 512) and qwen1.5-32b's first layer (512)
+      on the card (bf16, the kernel) against
       the same weights on the CPU (the plain versions): the prefill's and 2
       decode steps' logits within 2e-2 of the CPU's bf16, and no further
       from the CPU's f32 than 1.25 times the CPU's bf16 is; then the
       launcher with no argument (gemma3-1b);
-   j. the third LM slice's archs, served as in i: llama4-scout (8 of 48
-      layers; 16 experts top-1 and a shared expert), arctic (2 of 35
-      layers; 128 experts top-2 and a dense MLP) and xlstm-350m (24
+   j. the third LM slice's archs, served as in i: llama4-scout (2 of 48
+      layers; 16 experts top-1 and a shared expert), arctic (1 of 35
+      layers; 128 experts top-2 and a dense MLP) and xlstm-350m (8 of 24
       layers: mLSTM chunkwise, sLSTM one step a position; prompts whole
       multiples of 256): every request done, finite logits, one flash
       launch per attention layer and prefill (none for xLSTM); the card
-      against the CPU on llama4-scout's first 2 layers (256 tokens),
+      against the CPU on llama4-scout's first layer (256 tokens),
       arctic's first (256 tokens, the CPU's bf16 only) and xlstm's first
       8 (512 tokens), with the (token, choice) routes that differ from the
       card's counted; the routes past capacity in a 2,048-token MoE
       prefill; llama4-scout's first MoE layer expert parallel on a world
       of one NCCL rank against the local path; the launcher on
       xlstm-350m at full size and on the MoE archs at their smoke size;
+   k. the fourth LM slice's archs at full width and depth, served as in i
+      but each request with its modality stub: whisper-medium (24 encoder
+      and 24 decoder layers; 1,500 frames of ``enc_embed``, prompts of
+      32-432 tokens, a cache of 448) and paligemma-3b (18 layers; 256
+      ``patches`` before prompts of 512-1,792 tokens, a cache of 2,048):
+      every request done, finite logits, 72 flash launches per whisper
+      prefill (24 encoder, 24 causal, 24 cross) and 18 per paligemma
+      prefill (the prefix mask); the card against the CPU on whisper's
+      first 2 encoder and 2 decoder layers (1,500 frames, 64 tokens) and
+      paligemma's first 2 layers (256 patches and 256 tokens); the launcher
+      on each at full size;
 4. CUDA-event times per solve and per kernel (median and range of three
    batches; a solve slower than the batch budget is timed once), beside
    each kernel's bound, its plain version and a library call, and the
@@ -172,10 +188,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    a ``pallas_fused`` solve each way; for the LM, prefill ms per request, decode ms
    per step beside its weight-read bound, and the device's busy share of a
    decode step (granite; each model of 3i, the busy share for
-   recurrentgemma-2b; and 3j's, with an MoE step's two weight-read bounds,
-   every expert and the routed ones only), and the flash kernel at
-   gemma3-12b's prefill shape with and without its softcap and at
-   arctic's (a query group of 7); the scatter level step on lung2's widest wavefront, and
+   recurrentgemma-2b; 3j's, with an MoE step's two weight-read bounds,
+   every expert and the routed ones only; and 3k's, with whisper's
+   recomputed cross-attention K/V beside it), and the flash kernel at
+   gemma3-12b's prefill shape with and without its softcap, at arctic's (a
+   query group of 7) and at the three mask shapes of phase 3k, each beside
+   SDPA or, for the prefix, compiled ``flex_attention``; the scatter level step on lung2's widest wavefront, and
    the block applies of one scatter blocked band solve beside
    ``torch.bmm``.
 
@@ -190,6 +208,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -257,6 +276,13 @@ FLASH_CASES = {"granite prefill": (1, 2048, 32, 8, 128, 0, 0.0),
                "gemma3-12b prefill": (1, 2048, 16, 8, 240, 0, 30.0),
                "llama4-scout prefill": (1, 2048, 40, 8, 128, 0, 0.0),
                "arctic prefill": (1, 2048, 56, 8, 128, 0, 0.0)}
+# (B, Sq, Sk, Hq, Hkv, hd, causal, prefix_len) of the masks phase 3k adds,
+# checked in phase 2 and timed in phase 4d: whisper-medium's encoder (full)
+# and its cross-attention at the longest served prompt (full, Sq != Sk),
+# paligemma-3b's prefill at 2,048 with its 256-patch prefix
+FLASH_MASK_CASES = {"whisper encoder": (1, 1500, 1500, 16, 16, 64, False, 0),
+                    "whisper cross": (1, 432, 1500, 16, 16, 64, False, 0),
+                    "paligemma prefix": (1, 2048, 2048, 8, 1, 256, True, 256)}
 # both fused solves on a chain in phase 2: one row per span, so one
 # dependent hop of the walk and one grid barrier of the batched grid per row
 CHAIN_N = 1000
@@ -314,12 +340,20 @@ RECURRENCE_SPTRSV = (512, 2)
 # count and prompt lengths, the last prompt 2,048 tokens so that
 # RecurrentGemma's ring of 2,048 wraps in decode).  Each arch: (layers
 # served, None for all; layers of the card-vs-CPU check, its first pattern
-# repetition, 0 for none; that check's prompt; the check's limit against
-# the CPU's f32).  Depth cuts: qwen1.5-32b's 64 layers are 68.8 GB of bf16
-# weights on an 80 GB card; for the time limit (on an H100 the script took
-# 1,137 s of its 1,200 after the card check with phase 3j and these two
-# at 40 and 12 layers), granite-3-8b runs 10 of its 40 layers and
-# gemma3-12b one pattern repetition, 6 of 48.
+# repetition or less, 0 for none; that check's prompt; the check's limit
+# against the CPU's f32).  Depth cuts: qwen1.5-32b's 64 layers are 68.8 GB
+# of bf16 weights on an 80 GB card.  The rest are for the time limit: on an
+# H100 the script took 1,097.6-1,137.2 s of its 1,200 after the card check
+# before phase 3k (granite-3-8b at 10 layers, gemma3-12b 6, qwen1.5-32b 8,
+# llama4-scout 8, arctic 2, the others whole; qwen's and llama4-scout's
+# checks 2 layers), so phase 3k is paid for by running each earlier LM
+# path at one pattern repetition or at most 4 layers, the slowest first:
+# xlstm-350m 8 of 24 (phase 3j took 34.0 s for it whole), llama4-scout 2
+# of 48 and its check 1 layer (36.1 s), qwen1.5-32b 2 of 64 and its check
+# 1 layer (21.6 s), granite-3-8b 4 of 40 (21.4 s), gemma3-1b 6 of 26
+# (16.9 s), recurrentgemma-2b 3 of 26 (16.3 s), arctic 1 of 35 (24.8 s,
+# most of it the check).  Phase 4d's launcher still serves granite-3-8b
+# whole.
 #
 # The card-vs-CPU check runs the prefill and LM_CPU_STEPS decode steps on
 # the card (bf16, the kernel) and on the CPU (the plain versions) in bf16
@@ -331,27 +365,42 @@ RECURRENCE_SPTRSV = (512, 2)
 # (tests/test_torch_lm_bf16_gap.py, at this configuration).
 #
 # Phase 3j serves the third LM slice's archs alike: llama4-scout (MoE,
-# 16 experts top-1 and a shared expert) cut to 8 of 48 layers (48 are ~214
-# GB of bf16; 8 are ~37 GB), its check 2 layers at 256 tokens; arctic (MoE,
-# 128 experts top-2 and a dense MLP) cut to 2 of 35 layers (one layer is
-# 27.2 GB; 35 are ~953 GB), its check 1 layer against the CPU's bf16 only
-# (an f32 host copy of one layer's experts is 53.5 GB of the host's 96
-# GiB), f32 limit None; xlstm-350m whole (24 layers, 1.1 GB), its check one
+# 16 experts top-1 and a shared expert; 48 layers are ~214 GB of bf16),
+# its check 1 layer at 256 tokens; arctic (MoE, 128 experts top-2 and a
+# dense MLP; one layer is 27.2 GB, 35 are ~953 GB), its check 1 layer
+# against the CPU's bf16 only (an f32 host copy of one layer's experts is
+# 53.5 GB of the host's 96 GiB), f32 limit None; xlstm-350m's check one
 # pattern repetition (7 mLSTM, 1 sLSTM) at 512 tokens.  xLSTM prompts are
 # multiples of 256 from 512 to 2,048: the mLSTM's chunkwise scan takes a
 # prompt longer than its chunk of 256 only in whole chunks (a ValueError
 # otherwise, as the JAX package asserts; ROADMAP C-ref 9).  Widths, expert
 # counts, top-k and the capacity factor are as published.
 LM_CPU_TOL = 2e-2
-LM_MODELS = {"granite-3-8b": (10, 2, 512, LM_CPU_TOL),
-             "gemma3-1b": (None, 6, 1100, 4e-2),
-             "recurrentgemma-2b": (None, 3, 512, LM_CPU_TOL),
+LM_MODELS = {"granite-3-8b": (4, 2, 512, LM_CPU_TOL),
+             "whisper-medium": (None, 2, 64, LM_CPU_TOL),
+             "paligemma-3b": (None, 2, 256, LM_CPU_TOL),
+             "gemma3-1b": (6, 6, 1100, 4e-2),
+             "recurrentgemma-2b": (3, 3, 512, LM_CPU_TOL),
              "gemma3-12b": (6, 0, 0, None),
-             "qwen1.5-32b": (8, 2, 512, LM_CPU_TOL),
-             "llama4-scout-17b-a16e": (8, 2, 256, LM_CPU_TOL),
-             "arctic-480b": (2, 1, 256, None),
-             "xlstm-350m": (None, 8, 512, LM_CPU_TOL)}
+             "qwen1.5-32b": (2, 1, 512, LM_CPU_TOL),
+             "llama4-scout-17b-a16e": (2, 1, 256, LM_CPU_TOL),
+             "arctic-480b": (1, 1, 256, None),
+             "xlstm-350m": (8, 8, 512, LM_CPU_TOL)}
 LM_SLICE3 = ("llama4-scout-17b-a16e", "arctic-480b", "xlstm-350m")
+# Phase 3k serves the fourth LM slice's archs at full width and depth, each
+# request with the stub it carries (drawn from a seed with numpy, standard
+# normal f32, as the JAX package's SyntheticLM draws its extras): whisper-
+# medium's 1,500 encoder frames (30 s of audio at 50 frames a second after
+# its convolution's stride), prompts of 32-432 tokens and a cache of 448
+# (its text context); paligemma-3b's 256 patches (224 pixels in 14-pixel
+# patches) before text prompts of 512-1,792 tokens, so that patches and
+# text fit a cache of 2,048.  Each arch: the stub's rows, the served prompt
+# range, s_cache, the two timed prompt lengths, and the launcher's extra
+# flags (paligemma's cache must hold its 256 patches and the prompt).
+LM_SLICE4 = {"whisper-medium": dict(rows=1500, prompt=(32, 432), s_cache=448,
+                                    timed=(32, 432), launcher=()),
+             "paligemma-3b": dict(rows=256, prompt=(512, 1792), s_cache=2048,
+                                  timed=(512, 1792), launcher=("--cache", "512"))}
 LM_CPU_STEPS = 2
 # the MoE arch one of whose layers runs expert parallel on a world of one
 # NCCL rank (arctic's layer would need two more copies of its 26.8 GB of
@@ -418,14 +467,15 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, *, warm: bool = True, budget_ms: float = 120.0,
+def time_ms(torch, fn, *, warm: bool = True, budget_ms: float = 60.0,
             max_reps: int = 20, samples: int = 3) -> tuple[float, float, float]:
     """``(median, min, max)`` ms per call over ``samples`` batches of repeated
     calls between CUDA events (host launch gaps included — what a caller of
     the solve waits).  A first timed call, after an untimed warm-up unless
     ``warm`` is false (the caller has already run ``fn``), sizes each batch
-    to about ``budget_ms`` (120 ms, from 200, to keep the script within
-    its time limit); a call that alone exceeds the budget is timed once."""
+    to about ``budget_ms`` (60 ms, from 200 and then 120, to keep the
+    script within its time limit); a call that alone exceeds the budget is
+    timed once."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
 
@@ -632,35 +682,65 @@ def flash_checks(torch, dev, rng, record, flash_cuda, gqa_attention_ref) -> None
             record("flash_attn", dt, got.float(), want.float(),
                    f"{what} B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} "
                    f"window={window} softcap={cap:g}", tol=FLASH_TOL[dt])
+    for what, (B, Sq, Sk, Hq, Hkv, hd, causal, prefix) in FLASH_MASK_CASES.items():
+        for dt in ("bfloat16", "float32"):
+            q, k, v = (torch.from_numpy(rng.standard_normal(
+                (B, S, H, hd), dtype=np.float32)).to(dev, getattr(torch, dt))
+                for S, H in ((Sq, Hq), (Sk, Hkv), (Sk, Hkv)))
+            kw = dict(causal=causal, prefix_len=prefix)
+            got = flash_cuda.flash_attn(q, k, v, **kw)
+            want = gqa_attention_ref(q, k, v, **kw)
+            record("flash_attn", dt, got.float(), want.float(),
+                   f"{what} B={B} Sq={Sq} Sk={Sk} Hq={Hq} Hkv={Hkv} hd={hd} "
+                   f"causal={causal} prefix_len={prefix}", tol=FLASH_TOL[dt])
 
 
 def attn_layers(cfg) -> int:
-    """The layers of ``cfg`` that run the flash kernel in prefill."""
-    return sum(kind.startswith("attn") for kind in cfg.kinds())
+    """The flash launches of one prefill of ``cfg``: its attention layers,
+    and for whisper its encoder layers and its decoder's cross-attention."""
+    n = sum(kind.startswith("attn") for kind in cfg.kinds())
+    return n + (cfg.encoder_layers + n if cfg.family == "audio" else 0)
+
+
+def lm_stub(rng, model, rows: int, B: int | None = None):
+    """The modality stub of ``model``'s requests, ``{name: (rows, D)}`` or
+    with a batch axis ``B``, standard normal f32 from ``rng``; ``{}`` for an
+    arch without one (paligemma's rows are its ``prefix_len``)."""
+    if model.stub is None:
+        return {}
+    cfg = model.cfg
+    rows = rows if model.stub == "enc_embed" else cfg.prefix_len
+    shape = (rows, cfg.d_model) if B is None else (B, rows, cfg.d_model)
+    return {model.stub: rng.standard_normal(shape, dtype=np.float32)}
 
 
 def lm_serve(torch, cfg, model, params, reset_counts, counts, *, phase):
-    """Phases 3d, 3i and 3j: ``ServeEngine`` over LM_REQUESTS prompts, the
-    last one of the longest length, with the launch counts zeroed just
-    before the run and read just after.  Returns the counts and the
-    engine."""
+    """Phases 3d, 3i, 3j and 3k: ``ServeEngine`` over LM_REQUESTS prompts,
+    the last one of the longest length (LM_PROMPT_LEN, or the arch's range
+    in LM_SLICE4, whose requests carry their stub), with the launch counts
+    zeroed just before the run and read just after.  Returns the counts and
+    the engine."""
     from repro_torch.serve.engine import Request, ServeEngine
 
     from repro_torch.models.recurrent import MLSTM_CHUNK
 
+    serve = LM_SLICE4.get(cfg.name, {})
+    plen, s_cache = serve.get("prompt", LM_PROMPT_LEN), serve.get("s_cache", LM_S_CACHE)
     prompt_rng = np.random.default_rng(15)
-    lens = prompt_rng.integers(LM_PROMPT_LEN[0], LM_PROMPT_LEN[1] + 1, LM_REQUESTS)
-    lens[-1] = LM_PROMPT_LEN[1]
+    lens = prompt_rng.integers(plen[0], plen[1] + 1, LM_REQUESTS)
+    lens[-1] = plen[1]
     if "mlstm" in cfg.kinds():          # whole mLSTM chunks (LM_MODELS' comment)
-        lens = np.clip(lens // MLSTM_CHUNK * MLSTM_CHUNK, *LM_PROMPT_LEN)
+        lens = np.clip(lens // MLSTM_CHUNK * MLSTM_CHUNK, *plen)
     reqs = [Request(i, prompt_rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32),
-                    max_new=LM_MAX_NEW) for i, n in enumerate(lens)]
-    eng = ServeEngine(model, params, batch_slots=LM_SLOTS, s_cache=LM_S_CACHE)
+                    max_new=LM_MAX_NEW,
+                    extras=lm_stub(prompt_rng, model, serve.get("rows", 0)) or None)
+            for i, n in enumerate(lens)]
+    eng = ServeEngine(model, params, batch_slots=LM_SLOTS, s_cache=s_cache)
     finite = []
 
     def watch(fn):
-        def wrapped(*args):
-            logits, cache = fn(*args)
+        def wrapped(*args, **stub):
+            logits, cache = fn(*args, **stub)
             check(logits.shape[-1] == cfg.vocab_pad, f"logits {tuple(logits.shape)}")
             finite.append(torch.isfinite(logits).all())
             return logits, cache
@@ -678,8 +758,10 @@ def lm_serve(torch, cfg, model, params, reset_counts, counts, *, phase):
     wall = time.perf_counter() - t0
     launches = counts()
     toks = sum(len(r.out) for r in reqs)
+    stub = (f"; each with {model.stub} {reqs[0].extras[model.stub].shape}"
+            if model.stub else "")
     print(f"phase {phase}: ServeEngine({cfg.name}, {LM_SLOTS} slots, s_cache="
-          f"{LM_S_CACHE}): prompts {sorted(int(n) for n in lens)}; "
+          f"{s_cache}): prompts {sorted(int(n) for n in lens)}{stub}; "
           f"{sum(r.done for r in reqs)}/{len(reqs)} requests, {toks} tokens, "
           f"{eng.prefills} prefills, {eng.steps} decode steps in {wall:.2f} s "
           f"(first request's tokens {reqs[0].out}); launches {json.dumps(launches)}")
@@ -713,22 +795,30 @@ def lm_launcher(torch, cfg, reset_counts, counts, argv, phase) -> None:
 
 def lm_cpu_check(torch, dev, cfg, params, n_layers, prompt, f32_tol, flash_cuda,
                  phase) -> None:
-    """Phases 3d, 3i and 3j: the first ``n_layers`` of a served model on
-    the card (bf16, the kernel) against the same weights on the CPU, in
-    bf16 and, unless ``f32_tol`` is None, in f32 (the plain versions):
-    logits of a ``prompt``-token prefill and LM_CPU_STEPS decode steps, the
-    cache ``prompt + LM_CPU_STEPS`` long.  The card is held within
-    LM_CPU_TOL of the CPU's bf16 and within ``f32_tol`` of its f32.  With
-    experts, the (token, choice) routes that differ from the card's are
-    counted and printed (a near tie may route apart)."""
+    """Phases 3d, 3i, 3j and 3k: the first ``n_layers`` of a served model
+    (and of whisper's encoder) on the card (bf16, the kernel) against the
+    same weights on the CPU, in bf16 and, unless ``f32_tol`` is None, in
+    f32 (the plain versions): logits of a ``prompt``-token prefill (with the
+    arch's stub: whisper's frames, paligemma's patches before the prompt)
+    and LM_CPU_STEPS decode steps, the cache as long as the sequence and
+    the steps.  The card is held within LM_CPU_TOL of the CPU's bf16 and
+    within ``f32_tol`` of its f32.  With experts, the (token, choice)
+    routes that differ from the card's are counted and printed (a near tie
+    may route apart)."""
     import dataclasses
 
     from repro_torch.models.model import Model
 
     t0 = time.perf_counter()
-    short = dataclasses.replace(cfg, num_layers=n_layers)
+    short = dataclasses.replace(cfg, num_layers=n_layers,
+                                encoder_layers=min(cfg.encoder_layers, n_layers))
     sub = {"embed": params["embed"], "final_ln": params["final_ln"],
            "layers": params["layers"][:n_layers]}
+    if "encoder" in params:
+        sub["encoder"] = {"layers": params["encoder"]["layers"][:n_layers],
+                          "ln": params["encoder"]["ln"]}
+    if "patch_proj" in params:
+        sub["patch_proj"] = params["patch_proj"]
     models = {"card": (Model(short, device=dev), sub),
               "cpu bf16": (Model(short, device="cpu"),
                            tree_to(sub, "cpu", torch.bfloat16))}
@@ -738,12 +828,15 @@ def lm_cpu_check(torch, dev, cfg, params, n_layers, prompt, f32_tol, flash_cuda,
     tok_rng = np.random.default_rng(16)
     toks = torch.from_numpy(tok_rng.integers(0, cfg.vocab_size, (1, prompt)))
     nxt = torch.from_numpy(tok_rng.integers(0, cfg.vocab_size, (LM_CPU_STEPS, 1, 1)))
-    s_cache = prompt + LM_CPU_STEPS
+    stub = {k: torch.from_numpy(a) for k, a in lm_stub(
+        tok_rng, models["card"][0], LM_SLICE4.get(cfg.name, {}).get("rows", 0), 1).items()}
+    s_cache = prompt + cfg.prefix_len + LM_CPU_STEPS
     logits, routes = {}, {}
     for what, (model, p) in models.items():
         before = flash_cuda.launches["flash_attn"]
         with RouteLog() as routes[what]:
-            out, cache = model.prefill(p, toks.to(model.device), s_cache)
+            out, cache = model.prefill(p, toks.to(model.device), s_cache,
+                                       **{k: t.to(model.device) for k, t in stub.items()})
             steps = [out.float().cpu()]
             if what == "card":
                 torch.cuda.synchronize()
@@ -778,8 +871,11 @@ def lm_cpu_check(torch, dev, cfg, params, n_layers, prompt, f32_tol, flash_cuda,
         flips = "; routes differing from the card's: " + ", ".join(
             "{} {} of {}".format(what, *route_flips(routes["card"], log))
             for what, log in routes.items() if what != "card")
+    enc = (f" and {short.encoder_layers} encoder layers over "
+           f"{tuple(stub['enc_embed'].shape[1:])} frames" if "enc_embed" in stub else "")
+    enc += (f" after {tuple(stub['patches'].shape[1:])} patches" if "patches" in stub else "")
     print(f"phase {phase}: {cfg.name}: {n_layers} full-width layers "
-          f"{short.kinds()}, {prompt}-token prompt, logits of the prefill and "
+          f"{short.kinds()}{enc}, {prompt}-token prompt, logits of the prefill and "
           f"{LM_CPU_STEPS} decode steps: card bf16 vs CPU bf16 max rel err "
           f"{fmt(same)} (tol {LM_CPU_TOL:g}); {f32}{flips}; in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -787,14 +883,15 @@ def lm_cpu_check(torch, dev, cfg, params, n_layers, prompt, f32_tol, flash_cuda,
 
 def lm_family(torch, dev, rng, arch, reset_counts, counts, flash_cuda,
               phase) -> dict:
-    """Phase 3d (granite) or 3i for one arch of LM_MODELS, random bf16
-    weights from seed 0: ``ServeEngine`` (every request done, finite
-    logits, one flash launch per attention layer and prefill); the local
-    layers' rings wrapped; an int8 cache with f32 scales; the first pattern
-    repetition on the card against the CPU; then phase 4d's times: prefill
-    ms per request, decode ms per step beside its weight-read bound and the
-    device's busy share of a decode step.  Returns the served run's launch
-    counts and the attention layers per prefill."""
+    """Phase 3d (granite), 3i, 3j or 3k for one arch of LM_MODELS, random
+    bf16 weights from seed 0: ``ServeEngine`` (every request done, finite
+    logits, one flash launch per attention layer, and per whisper encoder
+    layer and cross-attention block, and prefill); the local layers' rings
+    wrapped; an int8 cache with f32 scales; the first pattern repetition on
+    the card against the CPU; then phase 4d's times: prefill ms per request,
+    decode ms per step beside its weight-read bound and the device's busy
+    share of a decode step.  Returns the served run's launch counts and the
+    flash launches per prefill."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -808,13 +905,16 @@ def lm_family(torch, dev, rng, arch, reset_counts, counts, flash_cuda,
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     torch.cuda.synchronize()
     w_bytes = sum(x.numel() * x.element_size() for x in leaves(params))
-    moe = (f"{cfg.n_experts} experts top-{cfg.top_k}, capacity factor "
+    extra = (f"{cfg.n_experts} experts top-{cfg.top_k}, capacity factor "
            f"{cfg.capacity_factor:g}, shared expert {cfg.shared_expert}, dense "
            f"MLP {cfg.moe_dense_residual}, " if cfg.n_experts else "")
+    extra += (f"{cfg.encoder_layers} encoder layers, cross-attention, no RoPE, "
+            if cfg.encoder_layers else "")
+    extra += f"a prefix of {cfg.prefix_len} patches, " if cfg.prefix_len else ""
     print(f"phase {phase}: {arch}: {cfg.num_layers} of {full.num_layers} layers "
           f"({cfg.block_pattern} repeated), d_model {cfg.d_model}, "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, "
-          f"{moe}window {cfg.window}, softcap {cfg.logit_softcap:g}, QKV bias "
+          f"{extra}window {cfg.window}, softcap {cfg.logit_softcap:g}, QKV bias "
           f"{cfg.qkv_bias}, {cfg.kv_cache_dtype} KV cache, vocab {cfg.vocab_size} "
           f"(padded {cfg.vocab_pad}): {w_bytes / 1e9:.3f} GB of parameters on "
           f"the card, random from seed 0, in {time.perf_counter() - t0:.1f} s")
@@ -843,40 +943,63 @@ def lm_family(torch, dev, rng, arch, reset_counts, counts, flash_cuda,
     if cfg.n_experts:
         moe_checks(torch, dev, rng, cfg, model, params, phase)
 
-    for n in LM_TIMED_PROMPTS:
+    serve = LM_SLICE4.get(arch, {})
+    s_cache = serve.get("s_cache", LM_S_CACHE)
+    stub = {k: torch.from_numpy(a).to(dev)
+            for k, a in lm_stub(rng, model, serve.get("rows", 0), 1).items()}
+    with_stub = "".join(f" after {tuple(t.shape[1:])} {k}" for k, t in stub.items())
+    for n in serve.get("timed", LM_TIMED_PROMPTS):
         toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n))).to(dev)
-        t = time_ms(torch, lambda: model.prefill(params, toks, LM_S_CACHE))
-        print(f"phase 4d: prefill {arch} ({cfg.num_layers} layers) S={n}: "
+        t = time_ms(torch, lambda: model.prefill(params, toks, s_cache, **stub))
+        print(f"phase 4d: prefill {arch} ({cfg.num_layers} layers) S={n}{with_stub}: "
               f"{fmt_ms(t)} per request ({n / t[0] * 1e3:.0f} tokens/s)")
-    cache = model.init_cache(LM_SLOTS, LM_S_CACHE)
-    cache["idx"] = LM_S_CACHE // 2
+    cache = model.init_cache(LM_SLOTS, s_cache)
+    cache["idx"] = s_cache // 2
+    if "enc_embed" in stub:             # every slot's encoder output
+        cache["enc_out"] = torch.from_numpy(rng.standard_normal(
+            (LM_SLOTS, serve["rows"], cfg.d_model), dtype=np.float32)).to(dev, model.dtype)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (LM_SLOTS, 1))).to(dev)
     t = time_ms(torch, lambda: model.decode_step(params, toks, cache))
+    # the weights a step reads: all but whisper's encoder and paligemma's
+    # patch projection, which only prefill runs
+    w_step = sum(x.numel() * x.element_size() for name in ("embed", "final_ln", "layers")
+                 for x in leaves(params[name]))
     # the cache entries a step reads: the live slots of each K/V ring or
-    # cache (and their scales), every recurrent state whole
+    # cache (and their scales), every recurrent state and enc_out whole
     live = sum(x.numel() * x.element_size() * (
-        min(LM_S_CACHE // 2 + 1, x.shape[1]) / x.shape[1]
+        min(s_cache // 2 + 1, x.shape[1]) / x.shape[1]
         if name in ("k", "v", "scale") else 1)
         for slot in cache["layers"] for name, x in slot.items())
-    routed = ""
-    if cfg.n_experts:
+    if "enc_out" in cache:
+        enc = cache["enc_out"]
+        live += enc.numel() * enc.element_size()
+        # each step recomputes every cross-attention block's K and V over
+        # the encoder's output, as the reference does
+        xflops = 2 * 2 * enc.shape[0] * enc.shape[1] * cfg.d_model * cfg.n_kv_heads \
+            * cfg.hd * cfg.num_layers
+        note = (f"; the cross-attention K/V it recomputes {xflops / 1e9:.1f} GFLOP, "
+                f"{xflops / BF16_TENSOR_FLOPS * 1e3:.4f} ms at the bf16 tensor rate")
+    elif cfg.n_experts:
         # the step reads every expert (the reference's arithmetic); the least
         # it needs is the experts its tokens were routed to, counted here
         with RouteLog() as log:
             model.decode_step(params, toks, dict(cache, layers=[
                 {k: v.clone() for k, v in slot.items()} for slot in cache["layers"]]))
         per_expert = 3 * cfg.d_model * cfg.d_ff * 2
-        need = w_bytes - per_expert * cfg.n_experts * len(log.calls) + per_expert * sum(
+        need = w_step - per_expert * cfg.n_experts * len(log.calls) + per_expert * sum(
             len(set(eid.flatten().tolist())) for _, eid, _ in log.calls)
-        routed = (f"; routed experts only {need / HBM_BYTES_PER_S * 1e3:.4f} ms "
-                  f"({need / 1e9:.3f} GB: experts routed per layer "
-                  f"{[len(set(eid.flatten().tolist())) for _, eid, _ in log.calls]} "
-                  f"of {cfg.n_experts})")
+        note = (f"; routed experts only {need / HBM_BYTES_PER_S * 1e3:.4f} ms "
+                f"({need / 1e9:.3f} GB: experts routed per layer "
+                f"{[len(set(eid.flatten().tolist())) for _, eid, _ in log.calls]} "
+                f"of {cfg.n_experts})")
+    else:
+        note = ""
     print(f"phase 4d: decode {arch} ({cfg.num_layers} layers) {LM_SLOTS} slots at "
-          f"position ~{LM_S_CACHE // 2}: {fmt_ms(t)} per step; weight-read bound "
-          f"{w_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({w_bytes / 1e9:.3f} GB, all "
-          f"weights), with the live cache {(w_bytes + live) / HBM_BYTES_PER_S * 1e3:.4f}"
-          f" ms{routed}")
+          f"position ~{s_cache // 2}: {fmt_ms(t)} per step; weight-read bound "
+          f"{w_step / HBM_BYTES_PER_S * 1e3:.4f} ms ({w_step / 1e9:.3f} GB, all "
+          f"weights a step reads), with the live cache "
+          f"{(w_step + live) / HBM_BYTES_PER_S * 1e3:.4f}"
+          f" ms{note}")
     print(f"phase 4d: profile decode step {arch} {LM_SLOTS} slots: "
           + device_busy(torch, lambda: model.decode_step(params, toks, cache)))
     return {"launches": launches, "attn_layers": attn_layers(cfg)}
@@ -933,21 +1056,24 @@ def moe_checks(torch, dev, rng, cfg, model, params, phase) -> None:
           f"{fmt_ms(local_ms)}; in {time.perf_counter() - t0:.1f} s")
 
 
-def attention_library(torch, cap: float):
+def attention_library(torch, cap: float, *, causal: bool = True,
+                      prefix_len: int = 0):
     """``(name, fn(q, k, v))``: one PyTorch call that computes the flash
-    kernel's causal GQA attention on ``(B, S, H, hd)`` tensors.  Without a
-    softcap it is ``scaled_dot_product_attention``; with one (which that
-    call lacks) ``flex_attention`` with a ``cap * tanh(s / cap)`` score_mod
-    and a causal block mask, compiled by ``torch.compile`` (its first call
-    compiles; the mask is built once per sequence length)."""
+    kernel's GQA attention on ``(B, S, H, hd)`` tensors, causal or full.
+    Without a softcap or a prefix it is ``scaled_dot_product_attention``;
+    with either (which that call lacks) ``flex_attention`` with a ``cap *
+    tanh(s / cap)`` score_mod and a causal block mask, or with the
+    prefix-LM mask_mod ``(kv <= q) | (kv < prefix_len)``, compiled by
+    ``torch.compile`` (its first call compiles; the mask is built once per
+    shape)."""
     import torch.nn.functional as F
 
     def bhsd(*xs):
         return (x.transpose(1, 2) for x in xs)
 
-    if cap <= 0.0:
+    if cap <= 0.0 and not prefix_len:
         return "scaled_dot_product_attention", lambda q, k, v: (
-            F.scaled_dot_product_attention(*bhsd(q, k, v), is_causal=True,
+            F.scaled_dot_product_attention(*bhsd(q, k, v), is_causal=causal,
                                            enable_gqa=True).transpose(1, 2))
     from torch.nn.attention.flex_attention import create_block_mask, flex_attention
 
@@ -957,35 +1083,38 @@ def attention_library(torch, cap: float):
     def capped(s, b, h, q_idx, kv_idx):
         return cap * torch.tanh(s / cap)
 
-    def causal(b, h, q_idx, kv_idx):
-        return q_idx >= kv_idx
+    def mask_mod(b, h, q_idx, kv_idx):
+        return (q_idx >= kv_idx) | (kv_idx < prefix_len)
 
     def run(q, k, v):
-        S = q.shape[1]
-        if S not in masks:
-            masks[S] = create_block_mask(causal, None, None, S, S, device=q.device)
-        return flex(*bhsd(q, k, v), score_mod=capped, block_mask=masks[S],
-                    enable_gqa=True).transpose(1, 2)
+        shape = (q.shape[1], k.shape[1])
+        if shape not in masks:
+            masks[shape] = create_block_mask(mask_mod, None, None, *shape, device=q.device)
+        return flex(*bhsd(q, k, v), score_mod=capped if cap > 0.0 else None,
+                    block_mask=masks[shape], enable_gqa=True).transpose(1, 2)
 
     return "flex_attention", run
 
 
-def flash_times(torch, dev, rng, what, shape, flash_cuda, gqa_attention_ref) -> dict:
+def flash_times(torch, dev, rng, what, shape, flash_cuda, gqa_attention_ref, *,
+                Sk: int | None = None, causal: bool = True, prefix_len: int = 0) -> dict:
     """Phase 4d: the flash kernel in bf16 at ``shape`` ``(B, S, Hq, Hkv, hd,
-    window, softcap)`` beside its bound, its plain version and, without a
-    window, :func:`attention_library`'s call, which is held against the
-    kernel at FLASH_TOL.  The bound is the larger of the live (query, key)
-    pairs' two products of ``hd`` MACs at the bf16 tensor rate and q, k, v
-    read and o written once at the HBM rate."""
+    window, softcap)`` (``Sk`` keys, ``S`` by default; causal or full; a
+    prefix of ``prefix_len``) beside its bound, its plain version and,
+    without a window, :func:`attention_library`'s call, which is held
+    against the kernel at FLASH_TOL.  The bound is the larger of the live
+    (query, key) pairs' two products of ``hd`` MACs at the bf16 tensor rate
+    and q, k, v read and o written once at the HBM rate."""
     B, S, Hq, Hkv, hd, window, cap = shape
-    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, H, hd), dtype=np.float32))
-               .to(dev, torch.bfloat16) for H in (Hq, Hkv, Hkv))
-    kw = dict(window=window, softcap=cap)
+    Sk = S if Sk is None else Sk
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, L, H, hd), dtype=np.float32))
+               .to(dev, torch.bfloat16) for L, H in ((S, Hq), (Sk, Hkv), (Sk, Hkv)))
+    kw = dict(causal=causal, window=window, softcap=cap, prefix_len=prefix_len)
     ms = time_ms(torch, lambda: flash_cuda.flash_attn(q, k, v, **kw))
     plain = time_ms(torch, lambda: gqa_attention_ref(q, k, v, **kw))
     lib_ms, lib_note = None, "n/a (a window)"
     if not window:
-        name, fn = attention_library(torch, cap)
+        name, fn = attention_library(torch, cap, causal=causal, prefix_len=prefix_len)
         try:
             lib = time_ms(torch, lambda: fn(q, k, v))
             err = rel_err(fn(q, k, v).float(), flash_cuda.flash_attn(q, k, v, **kw).float())
@@ -995,13 +1124,16 @@ def flash_times(torch, dev, rng, what, shape, flash_cuda, gqa_attention_ref) -> 
             check(err <= FLASH_TOL["bfloat16"],
                   f"flash {what}: {name} vs the kernel rel err {err:.3e}")
             lib_ms, lib_note = lib[0], f"{name} {fmt_ms(lib)} (vs kernel rel {err:.2e})"
-    live = sum(min(i + 1, window) if window else i + 1 for i in range(S))
+    live = (S * Sk if not causal else
+            sum(min(i + 1, window) if window else max(i + 1, prefix_len)
+                for i in range(S)))
     flops = 4 * hd * Hq * B * live
-    nbytes = 2 * B * S * hd * (2 * Hq + 2 * Hkv)      # q, o, k, v in bf16
+    nbytes = 2 * B * hd * (2 * S * Hq + 2 * Sk * Hkv)     # q, o, k, v in bf16
     t_ops, t_bytes = flops / BF16_TENSOR_FLOPS, nbytes / HBM_BYTES_PER_S
     bound = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
-    print(f"phase 4d: kernel flash_attn bf16 {what} B={B} S={S} Hq={Hq} Hkv={Hkv} "
-          f"hd={hd} causal window={window} softcap={cap:g}: {fmt_ms(ms)} per "
+    mask = (f"causal window={window} prefix_len={prefix_len}" if causal else "full")
+    print(f"phase 4d: kernel flash_attn bf16 {what} B={B} S={S} Sk={Sk} Hq={Hq} Hkv={Hkv} "
+          f"hd={hd} {mask} softcap={cap:g}: {fmt_ms(ms)} per "
           f"launch, {flops / ms[0] / 1e9:.1f} TFLOP/s; plain {fmt_ms(plain)}; "
           f"bound {bound[0]:.6f} ms ({bound[1]}: {flops / 1e9:.2f} GFLOP, "
           f"{nbytes / 1e6:.1f} MB); library {lib_note}")
@@ -2056,19 +2188,11 @@ def main() -> int:
     t_start = time.perf_counter()
 
     # -- phase 1: build -------------------------------------------------
-    t0 = time.perf_counter()
-    paths = build.build_all()
-    print(f"phase 1: built {len(paths)} kernel libraries in "
-          f"{time.perf_counter() - t0:.1f} s")
-    for name, path in paths.items():
-        log = path.with_suffix(".log")
-        for line in (log.read_text().splitlines() if log.exists() else []):
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
-    hmma = sass_hmma(paths["flash_attn"])
-    print(f"phase 1: HMMA instructions in the flash library's SASS: "
-          f"{sum(hmma.values())} ({json.dumps(hmma)})")
-    check(sum(hmma.values()) > 0, "the flash kernel has no tensor-core instruction")
+    # nvcc runs in the background while the host generates the matrices and
+    # builds the solvers and layouts below (a build step that needs a
+    # library waits for it on the build lock); phase 2 starts once it is done
+    nvcc_pool = ThreadPoolExecutor(max_workers=1)
+    built = nvcc_pool.submit(lambda: (build.build_all(), time.perf_counter()))
 
     t0 = time.perf_counter()
     L64 = lung2_like(scale=LUNG2_SCALE, seed=0)
@@ -2154,7 +2278,23 @@ def main() -> int:
               f"{geo[:, 4].max()} pad lanes {int((geo[:, 2] * geo[:, 3] - geo[:, 1]).sum())}")
     print(f"built the walk layouts in {time.perf_counter() - t0:.1f} s")
 
+    paths, t_built = built.result()
+    nvcc_pool.shutdown()
+    print(f"phase 1: built {len(paths)} kernel libraries in "
+          f"{t_built - t_start:.1f} s, beside the set-up")
+    for name, path in paths.items():
+        log = path.with_suffix(".log")
+        for line in (log.read_text().splitlines() if log.exists() else []):
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+    hmma = sass_hmma(paths["flash_attn"])
+    print(f"phase 1: HMMA instructions in the flash library's SASS: "
+          f"{sum(hmma.values())} ({json.dumps(hmma)})")
+    check(sum(hmma.values()) > 0, "the flash kernel has no tensor-core instruction")
+    print(f"set-up (matrices, solvers, layouts) and phase 1: "
+          f"{time.perf_counter() - t_start:.1f} s after the card check")
     # -- phase 2: each kernel against its plain version -------------------
+    t_phase = time.perf_counter()
     # phases 2 and 3 read the fused walk's error word after every launch,
     # so a wait that runs out raises; phase 4 times the solver as it runs
     # by default, without the read
@@ -2370,8 +2510,11 @@ def main() -> int:
                        f"segments; {json.dumps(cfg)})")
 
     flash_checks(torch, dev, rng, record, flash_cuda, gqa_attention_ref)
+    print(f"phase 2: kernels against their plain versions in "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
     # -- phase 3: the paths -----------------------------------------------
+    t_phase = time.perf_counter()
     small = lung2_like(scale=0.02, fat_levels=4, seed=3)
     small_band = banded_lower(SMALL_BAND_N, bandwidth=BAND_WIDTH, fill=1.0, seed=3)
     for M, kws in ((small, [VARIANTS[t] for t in LEVEL_TAGS]
@@ -2658,7 +2801,7 @@ def main() -> int:
     # 3i: gemma3, RecurrentGemma and qwen1.5 at full width, then the
     # launcher's default
     t0 = time.perf_counter()
-    slice2 = [a for a in LM_MODELS if a not in (LM_ARCH, *LM_SLICE3)]
+    slice2 = [a for a in LM_MODELS if a not in (LM_ARCH, *LM_SLICE3, *LM_SLICE4)]
     for arch in slice2:
         t1 = time.perf_counter()
         families[arch] = lm_family(torch, dev, rng, arch, reset_counts, counts,
@@ -2691,8 +2834,28 @@ def main() -> int:
                     "3j")
     print(f"phase 3j: MoE and xLSTM in {time.perf_counter() - t0:.1f} s; launches "
           f"{json.dumps(path_launches['slice3'])}")
+    # 3k: whisper-medium (encoder-decoder, cross-attention) and paligemma-3b
+    # (prefix-LM) at full width and depth, each request with its stub; then
+    # the launcher on each
+    t0 = time.perf_counter()
+    for arch in LM_SLICE4:
+        t1 = time.perf_counter()
+        families[arch] = lm_family(torch, dev, rng, arch, reset_counts, counts,
+                                   flash_cuda, "3k")
+        torch.cuda.empty_cache()
+        print(f"phase 3k: {arch} in {time.perf_counter() - t1:.1f} s; host "
+              f"memory {host_rss_gb():.1f} GB resident")
+    path_launches["slice4"] = {name: sum(families[a]["launches"][name] for a in LM_SLICE4)
+                               for name in KERNELS}
+    for arch, serve in LM_SLICE4.items():
+        lm_launcher(torch, get_config(arch), reset_counts, counts,
+                    ["--arch", arch, *serve["launcher"]], "3k")
+    print(f"phase 3k: whisper and paligemma in {time.perf_counter() - t0:.1f} s; "
+          f"launches {json.dumps(path_launches['slice4'])}")
     main_launches = {name: sum(p[name] for p in path_launches.values())
                      for name in KERNELS}
+    print(f"phase 3: the paths in {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     for name in KERNELS:
         check((main_launches[name] > 0) != (name in OFF_PATH),
               f"{name} launched {main_launches[name]} times on the paths")
@@ -3054,8 +3217,10 @@ def main() -> int:
                   f"{fmt_ms(pt)}")
     del level_tables
 
+    print(f"phase 4: launches per solve and the SpTRSV times in "
+          f"{time.perf_counter() - t_phase:.1f} s")
     # the flash kernel at granite's prefill shape, then at gemma3-12b's with
-    # its softcap and without
+    # its softcap and without, arctic's, and the masks of phase 3k
     t0 = time.perf_counter()
     fl = flash_times(torch, dev, rng, "granite prefill", FLASH_CASES["granite prefill"],
                      flash_cuda, gqa_attention_ref)
@@ -3065,6 +3230,11 @@ def main() -> int:
                         for tag, sh in (("", shape), (" uncapped", shape[:-1] + (0.0,))))
     g7 = flash_times(torch, dev, rng, "arctic prefill", FLASH_CASES["arctic prefill"],
                      flash_cuda, gqa_attention_ref)
+    masks = {}
+    for what, (B, Sq, Sk, Hq, Hkv, hd, causal, prefix) in FLASH_MASK_CASES.items():
+        masks[what] = flash_times(torch, dev, rng, what, (B, Sq, Hq, Hkv, hd, 0, 0.0),
+                                  flash_cuda, gqa_attention_ref, Sk=Sk, causal=causal,
+                                  prefix_len=prefix)
     report.append({
         "name": "flash_attn", "route": "cuda", "source": KERNELS["flash_attn"][0],
         "replaces": KERNELS["flash_attn"][1],
@@ -3083,7 +3253,14 @@ def main() -> int:
         "group7_case": {
             "shape": list(FLASH_CASES["arctic prefill"][:5]), "ms": g7["ms"][0],
             "plain_ms": g7["plain"][0], "bound_ms": g7["bound"][0],
-            "bound_by": g7["bound"][1], "library_ms": g7["library_ms"]}})
+            "bound_by": g7["bound"][1], "library_ms": g7["library_ms"]},
+        "mask_cases": {
+            what: {"shape": list(FLASH_MASK_CASES[what][:6]),
+                   "causal": FLASH_MASK_CASES[what][6],
+                   "prefix_len": FLASH_MASK_CASES[what][7], "ms": t["ms"][0],
+                   "plain_ms": t["plain"][0], "bound_ms": t["bound"][0],
+                   "bound_by": t["bound"][1], "library_ms": t["library_ms"]}
+            for what, t in masks.items()}})
     lm_launcher(torch, get_config(LM_ARCH), reset_counts, counts,
                 ["--arch", LM_ARCH], "4d")
     print(f"phase 4d: LM times and launcher in {time.perf_counter() - t0:.1f} s")

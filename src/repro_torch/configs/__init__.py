@@ -1,9 +1,10 @@
 """Per-architecture configs of the port.
 
 ``get("<arch-id>")`` accepts the public dashed id (e.g. "granite-3-8b").
-Every id of the JAX package is listed; the port serves granite, gemma3,
-qwen1.5, recurrentgemma, llama4-scout, arctic and xlstm
-(:mod:`repro_torch.models.model`).
+Every id of the JAX package is listed, and the port serves every one of
+them (:mod:`repro_torch.models.model`): granite, gemma3, qwen1.5,
+recurrentgemma, llama4-scout, arctic, xlstm, whisper (encoder-decoder)
+and paligemma (prefix-LM).
 """
 from repro_torch.models.config import ARCHS, get_config, smoke_config
 

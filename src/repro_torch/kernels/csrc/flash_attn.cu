@@ -14,8 +14,11 @@
 // (src/repro/models/layers.py:206-208).  The cap is a template flag of both
 // kernels: with c = 0 they do no extra work per score.
 //
-// over the keys j < Sk that are live: j < valid_len, j <= i when causal, and
-// j > i - window when window > 0.  Dead scores are the finite -1e30 of the
+// over the keys j < Sk that are live: j < valid_len, j <= i when causal
+// (or j < prefix_len: a bidirectional prefix, paligemma's prefix-LM mask
+// (k <= q) | (k < prefix_len), src/repro/models/layers.py:126-127), and
+// j > i - window when window > 0.  A prefix needs causal and no window.
+// Dead scores are the finite -1e30 of the
 // reference, never -inf: a row whose first visited tile holds only dead
 // keys takes p = exp(0) = 1 there, and the next tile's
 // alpha = exp(-1e30 - m) clears it (with -inf, -inf - -inf is NaN).  A row
@@ -29,8 +32,10 @@
 //     issued last-first, so the longest causal rows start first;
 //   * the TPU's sequential (ARBITRARY) KV grid axis becomes a loop inside
 //     the block over 64-key tiles, over the range of tiles that the TPU
-//     kernel's `live` predicate (plus the valid_len bound) keeps, so causal
-//     prefill visits about half of them;
+//     kernel's `live` predicate (plus the valid_len bound and the prefix)
+//     keeps, so causal prefill visits about half of them; with a prefix
+//     the range still starts at tile 0 and reaches the prefix's last tile
+//     from every query tile;
 //   * acc, m and l stay in f32 registers across the KV loop;
 //   * the ragged edges (Sq, Sk not multiples of 64) are masked here: rows
 //     past Sq are computed on zeros and not stored, keys past Sk are
@@ -59,7 +64,9 @@
 //     with 2 shuffles, the row sum l is kept per thread (from the f32 p)
 //     and reduced once at the end;
 //   * the mask is evaluated only on tiles that cut the diagonal, the
-//     window edge, valid_len or Sk; interior tiles skip it;
+//     window edge, valid_len or Sk; interior tiles skip it (a tile past the
+//     diagonal that the prefix makes live is masked all the same: the test
+//     stays the causal one, which is conservative);
 //   * P is rounded to bf16 in registers and used directly as the A operand
 //     of P V (the m16n8 accumulator layout of two n8 tiles is the k16 A
 //     layout), which is what the TPU kernel does (`p.astype(v.dtype)`);
@@ -91,23 +98,24 @@ constexpr float kNegInf = -1e30f;
 
 // True when a row of the query tile at q0 has no live key below Sk.
 __device__ bool tile_has_dead_row(int q0, int Sq, int valid_len, int causal,
-                                  int window) {
+                                  int window, int prefix_len) {
   const int end = min(q0 + kBQ, Sq);
   for (int i = q0; i < end; ++i) {
     const int lo = window > 0 ? max(0, i - window + 1) : 0;
-    const int hi = causal ? min(i, valid_len - 1) : valid_len - 1;
+    const int hi = causal ? min(max(i, prefix_len - 1), valid_len - 1)
+                          : valid_len - 1;
     if (lo > hi) return true;
   }
   return false;
 }
 
 // The KV tiles [*lo, *hi] of the query tile at q0: the TPU kernel's `live`
-// predicate plus the valid_len bound, which keep a contiguous range; every
-// tile when the query tile holds a dead row.
+// predicate plus the valid_len bound and the prefix, which keep a
+// contiguous range; every tile when the query tile holds a dead row.
 __device__ void kv_tiles(int q0, int Sq, int Sk, int valid_len, int causal,
-                         int window, int* lo, int* hi) {
+                         int window, int prefix_len, int* lo, int* hi) {
   const int n_kt = (Sk + kBK - 1) / kBK;
-  if (tile_has_dead_row(q0, Sq, valid_len, causal, window)) {
+  if (tile_has_dead_row(q0, Sq, valid_len, causal, window, prefix_len)) {
     *lo = 0;
     *hi = n_kt - 1;
     return;
@@ -117,7 +125,7 @@ __device__ void kv_tiles(int q0, int Sq, int Sk, int valid_len, int causal,
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
     bool live = k0 < valid_len;
-    if (causal) live = live && k0 <= q0 + kBQ - 1;
+    if (causal) live = live && (k0 <= q0 + kBQ - 1 || k0 < prefix_len);
     if (window > 0) live = live && k0 + kBK - 1 > q0 - window;
     if (live) {
       *lo = min(*lo, kt);
@@ -129,10 +137,11 @@ __device__ void kv_tiles(int q0, int Sq, int Sk, int valid_len, int causal,
 // Score s of query i and key j after the mask: s when live, -1e30 when
 // dead, -inf past Sk (never counted, not even in a dead row's mean).
 __device__ __forceinline__ float masked(float s, int i, int j, int Sk,
-                                        int valid_len, int causal, int window) {
+                                        int valid_len, int causal, int window,
+                                        int prefix_len) {
   if (j >= Sk) return __int_as_float(0xff800000);  // -inf
   bool ok = j < valid_len;
-  if (causal) ok = ok && j <= i;
+  if (causal) ok = ok && (j <= i || j < prefix_len);
   if (window > 0) ok = ok && j > i - window;
   return ok ? s : kNegInf;
 }
@@ -147,7 +156,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32_kernel(float* __restrict__ o, const float* __restrict__ q,
                      const float* __restrict__ k, const float* __restrict__ v,
                      int Sq, int Sk, int Hq, int Hkv, int hd, int valid_len,
-                     int causal, int window, float scale, float softcap) {
+                     int causal, int window, int prefix_len, float scale,
+                     float softcap) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ldq = hd + 1;
   const int ldp = kBK + 1;
@@ -192,7 +202,7 @@ flash_fwd_f32_kernel(float* __restrict__ o, const float* __restrict__ q,
   }
 
   int kt_lo, kt_hi;
-  kv_tiles(q0, Sq, Sk, valid_len, causal, window, &kt_lo, &kt_hi);
+  kv_tiles(q0, Sq, Sk, valid_len, causal, window, prefix_len, &kt_lo, &kt_hi);
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // Qs written; the last tile's P V done with Ks, Vs, Ps
@@ -231,7 +241,8 @@ flash_fwd_f32_kernel(float* __restrict__ o, const float* __restrict__ q,
       for (int j = 0; j < 4; ++j) {
         float s = sc[i][j] * scale;
         if constexpr (kCap) s = softcap * tanhf(s / softcap);
-        sc[i][j] = masked(s, qp, k0 + c + 16 * j, Sk, valid_len, causal, window);
+        sc[i][j] = masked(s, qp, k0 + c + 16 * j, Sk, valid_len, causal, window,
+                          prefix_len);
         mx = fmaxf(mx, sc[i][j]);
       }
 #pragma unroll
@@ -292,8 +303,8 @@ size_t f32_smem_bytes(int hd) {
 template <int kCols>
 int launch_f32(float* o, const float* q, const float* k, const float* v, int B,
                int Sq, int Sk, int Hq, int Hkv, int hd, int valid_len,
-               int causal, int window, float scale, float softcap,
-               cudaStream_t stream) {
+               int causal, int window, int prefix_len, float scale,
+               float softcap, cudaStream_t stream) {
   const size_t smem = f32_smem_bytes(hd);
   auto kern = softcap > 0.f ? flash_fwd_f32_kernel<kCols, true>
                             : flash_fwd_f32_kernel<kCols, false>;
@@ -302,8 +313,8 @@ int launch_f32(float* o, const float* q, const float* k, const float* v, int B,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + kBQ - 1) / kBQ, B * Hq);
   kern<<<grid, kThreads, smem, stream>>>(o, q, k, v, Sq, Sk, Hq, Hkv, hd,
-                                         valid_len, causal, window, scale,
-                                         softcap);
+                                         valid_len, causal, window, prefix_len,
+                                         scale, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -407,7 +418,8 @@ __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_bf16_kernel(bf16* __restrict__ o, const bf16* __restrict__ q,
                       const bf16* __restrict__ k, const bf16* __restrict__ v,
                       int Sq, int Sk, int Hq, int Hkv, int hd, int valid_len,
-                      int causal, int window, float s_mul, float cap_log2) {
+                      int causal, int window, int prefix_len, float s_mul,
+                      float cap_log2) {
   constexpr int kLd = Tile<HD>::kLd;
   constexpr int kTile = Tile<HD>::kElems;
   constexpr int kKC = HD / 16;           // k16 steps over the head dim
@@ -456,7 +468,7 @@ flash_fwd_bf16_kernel(bf16* __restrict__ o, const bf16* __restrict__ q,
   uint32_t qf[kQRegs ? kKC : 1][4];
 
   int kt_lo, kt_hi;
-  kv_tiles(q0, Sq, Sk, valid_len, causal, window, &kt_lo, &kt_hi);
+  kv_tiles(q0, Sq, Sk, valid_len, causal, window, prefix_len, &kt_lo, &kt_hi);
   if (kt_lo <= kt_hi) {
     load_tile<HD, kAsync>(Qs, qb, q_row, q0, Sq, hd);
     load_tile<HD, kAsync>(Ks, kb, kv_row, kt_lo * kBK, Sk, hd);
@@ -507,7 +519,9 @@ flash_fwd_bf16_kernel(bf16* __restrict__ o, const bf16* __restrict__ q,
       }
     }
 
-    // scale into the exp2 domain; mask only tiles that cut an edge
+    // scale into the exp2 domain; mask only tiles that cut an edge (a tile
+    // that the causal test calls an edge may lie in the prefix: masking it
+    // changes nothing)
     const int k0 = kt * kBK;
     const bool edge = k0 + kBK > valid_len || (causal && k0 + kBK - 1 > q0) ||
                       (window > 0 && k0 <= q0 + kBQ - 1 - window);
@@ -518,7 +532,7 @@ flash_fwd_bf16_kernel(bf16* __restrict__ o, const bf16* __restrict__ q,
         float s = sc[j][e] * s_mul;
         if constexpr (kCap) s = tanhf(s) * cap_log2;
         sc[j][e] = edge ? masked(s, row0 + 8 * (e >> 1), k0 + 8 * j + 2 * t + (e & 1),
-                                 Sk, valid_len, causal, window)
+                                 Sk, valid_len, causal, window, prefix_len)
                         : s;
       }
 
@@ -595,8 +609,8 @@ flash_fwd_bf16_kernel(bf16* __restrict__ o, const bf16* __restrict__ q,
 template <int HD, bool kAsync>
 int launch_bf16(bf16* o, const bf16* q, const bf16* k, const bf16* v, int B,
                 int Sq, int Sk, int Hq, int Hkv, int hd, int valid_len,
-                int causal, int window, float scale, float softcap,
-                cudaStream_t stream) {
+                int causal, int window, int prefix_len, float scale,
+                float softcap, cudaStream_t stream) {
   constexpr size_t smem = Tile<HD>::kSmem;
   constexpr float kLog2e = 1.4426950408889634f;  // p = exp2(s log2(e) - m)
   const bool cap = softcap > 0.f;
@@ -607,7 +621,7 @@ int launch_bf16(bf16* o, const bf16* q, const bf16* k, const bf16* v, int B,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * Hq, (Sq + kBQ - 1) / kBQ);
   kern<<<grid, kMmaThreads, smem, stream>>>(
-      o, q, k, v, Sq, Sk, Hq, Hkv, hd, valid_len, causal, window,
+      o, q, k, v, Sq, Sk, Hq, Hkv, hd, valid_len, causal, window, prefix_len,
       cap ? scale / softcap : scale * kLog2e, softcap * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -615,20 +629,25 @@ int launch_bf16(bf16* o, const bf16* q, const bf16* k, const bf16* v, int B,
 template <int HD>
 int dispatch_bf16(bf16* o, const bf16* q, const bf16* k, const bf16* v, int B,
                   int Sq, int Sk, int Hq, int Hkv, int hd, int valid_len,
-                  int causal, int window, float scale, float softcap,
-                  cudaStream_t stream) {
+                  int causal, int window, int prefix_len, float scale,
+                  float softcap, cudaStream_t stream) {
   const bool aligned = ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v)) & 15) == 0;
   if (hd % 8 == 0 && aligned)
     return launch_bf16<HD, true>(o, q, k, v, B, Sq, Sk, Hq, Hkv, hd, valid_len,
-                                 causal, window, scale, softcap, stream);
+                                 causal, window, prefix_len, scale, softcap,
+                                 stream);
   return launch_bf16<HD, false>(o, q, k, v, B, Sq, Sk, Hq, Hkv, hd, valid_len,
-                                causal, window, scale, softcap, stream);
+                                causal, window, prefix_len, scale, softcap,
+                                stream);
 }
 
-bool bad_shape(int Sq, int Hkv, int Hq, int hd, float softcap) {
+// A prefix in [0, Sk], and only on a causal mask without a window.
+bool bad_shape(int Sq, int Sk, int Hkv, int Hq, int hd, int causal, int window,
+               int prefix_len, float softcap) {
   return hd < 1 || hd > 256 || Hkv < 1 || Hq % Hkv != 0 ||
-         (Sq + kBQ - 1) / kBQ > 65535 || !(softcap >= 0.f);
+         (Sq + kBQ - 1) / kBQ > 65535 || !(softcap >= 0.f) || prefix_len < 0 ||
+         prefix_len > Sk || (prefix_len > 0 && (!causal || window > 0));
 }
 
 }  // namespace
@@ -636,36 +655,38 @@ bool bad_shape(int Sq, int Hkv, int Hq, int hd, float softcap) {
 extern "C" int flash_attn_fwd_f32(float* o, const float* q, const float* k,
                                   const float* v, int B, int Sq, int Sk, int Hq,
                                   int Hkv, int hd, int valid_len, int causal,
-                                  int window, float scale, float softcap,
-                                  cudaStream_t stream) {
+                                  int window, int prefix_len, float scale,
+                                  float softcap, cudaStream_t stream) {
   if (B == 0 || Sq == 0 || Hq == 0) return 0;
-  if (bad_shape(Sq, Hkv, Hq, hd, softcap) || B * Hq > 65535)
+  if (bad_shape(Sq, Sk, Hkv, Hq, hd, causal, window, prefix_len, softcap) ||
+      B * Hq > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (hd <= 64)
     return launch_f32<4>(o, q, k, v, B, Sq, Sk, Hq, Hkv, hd, valid_len, causal,
-                         window, scale, softcap, stream);
+                         window, prefix_len, scale, softcap, stream);
   if (hd <= 128)
     return launch_f32<8>(o, q, k, v, B, Sq, Sk, Hq, Hkv, hd, valid_len, causal,
-                         window, scale, softcap, stream);
+                         window, prefix_len, scale, softcap, stream);
   return launch_f32<16>(o, q, k, v, B, Sq, Sk, Hq, Hkv, hd, valid_len, causal,
-                        window, scale, softcap, stream);
+                        window, prefix_len, scale, softcap, stream);
 }
 
 extern "C" int flash_attn_fwd_bf16(__nv_bfloat16* o, const __nv_bfloat16* q,
                                    const __nv_bfloat16* k,
                                    const __nv_bfloat16* v, int B, int Sq, int Sk,
                                    int Hq, int Hkv, int hd, int valid_len,
-                                   int causal, int window, float scale,
-                                   float softcap, cudaStream_t stream) {
+                                   int causal, int window, int prefix_len,
+                                   float scale, float softcap,
+                                   cudaStream_t stream) {
   if (B == 0 || Sq == 0 || Hq == 0) return 0;
-  if (bad_shape(Sq, Hkv, Hq, hd, softcap))
+  if (bad_shape(Sq, Sk, Hkv, Hq, hd, causal, window, prefix_len, softcap))
     return static_cast<int>(cudaErrorInvalidValue);
   if (hd <= 64)
     return dispatch_bf16<64>(o, q, k, v, B, Sq, Sk, Hq, Hkv, hd, valid_len,
-                             causal, window, scale, softcap, stream);
+                             causal, window, prefix_len, scale, softcap, stream);
   if (hd <= 128)
     return dispatch_bf16<128>(o, q, k, v, B, Sq, Sk, Hq, Hkv, hd, valid_len,
-                              causal, window, scale, softcap, stream);
+                              causal, window, prefix_len, scale, softcap, stream);
   return dispatch_bf16<256>(o, q, k, v, B, Sq, Sk, Hq, Hkv, hd, valid_len,
-                            causal, window, scale, softcap, stream);
+                            causal, window, prefix_len, scale, softcap, stream);
 }

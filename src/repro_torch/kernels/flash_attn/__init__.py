@@ -1,2 +1,2 @@
-"""Flash-attention forward: causal / sliding-window attention with the
-online softmax, on the ``(B, S, H, hd)`` GQA layout."""
+"""Flash-attention forward: full, causal, prefix-LM or sliding-window
+attention with the online softmax, on the ``(B, S, H, hd)`` GQA layout."""

@@ -14,7 +14,8 @@ import torch
 from .. import build
 from ..cuda_common import I32, P, check_tensor, raise_on_error, stream_of
 
-__all__ = ["flash_attn", "launches", "reset_launches", "MAX_HEAD_DIM"]
+__all__ = ["flash_attn", "launches", "reset_launches", "MAX_HEAD_DIM",
+           "check_prefix"]
 
 launches = {"flash_attn": 0}
 MAX_HEAD_DIM = 256
@@ -26,22 +27,36 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
+def check_prefix(prefix_len: int, Sk: int, causal: bool, window: int) -> None:
+    """Raise ``ValueError`` unless ``prefix_len`` is in ``[0, Sk]`` and, when
+    non-zero, sits on a causal mask without a window (the kernel's own
+    check, made before the launch)."""
+    if not 0 <= prefix_len <= Sk:
+        raise ValueError(f"prefix_len {prefix_len} outside [0, {Sk}]")
+    if prefix_len and (not causal or window > 0):
+        raise ValueError(f"prefix_len {prefix_len} needs a causal mask without "
+                         f"a window (causal={causal}, window={window})")
+
+
 @functools.lru_cache(maxsize=None)
 def _entry(dtype: torch.dtype):
     fn = getattr(build.load("flash_attn"), f"flash_attn_fwd_{_SUFFIX[dtype]}")
-    fn.argtypes = [P, P, P, P] + [I32] * 9 + [ctypes.c_float, ctypes.c_float, P]
+    fn.argtypes = [P, P, P, P] + [I32] * 10 + [ctypes.c_float, ctypes.c_float, P]
     fn.restype = I32
     return fn
 
 
 def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                causal: bool = True, window: int = 0,
-               valid_len: int | None = None, softcap: float = 0.0) -> torch.Tensor:
+               valid_len: int | None = None, softcap: float = 0.0,
+               prefix_len: int = 0) -> torch.Tensor:
     """Attention of ``q`` ``(B, Sq, Hq, hd)`` over ``k``/``v`` ``(B, Sk,
     Hkv, hd)`` on the card, scale ``hd ** -0.5``; returns ``(B, Sq, Hq,
     hd)`` in ``q``'s dtype.  Keys at or past ``valid_len`` (default
     ``Sk``) are dead.  ``softcap > 0`` caps each scaled score at
-    ``softcap * tanh(s / softcap)`` before the mask."""
+    ``softcap * tanh(s / softcap)`` before the mask.  ``prefix_len > 0``
+    (causal, no window) makes the first ``prefix_len`` keys live for every
+    query: the prefix-LM mask ``(k <= q) | (k < prefix_len)``."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attn launches the CUDA kernel; q is on {dev}")
@@ -69,12 +84,13 @@ def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"valid_len {valid_len} outside [0, {Sk}]")
     if window < 0:
         raise ValueError(f"window {window} < 0")
+    check_prefix(prefix_len, Sk, causal, window)
     if not 0.0 <= softcap < float("inf"):
         raise ValueError(f"softcap {softcap} is not a finite value >= 0")
     o = torch.empty_like(q)
     rc = _entry(dt)(o.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     B, Sq, Sk, Hq, Hkv, hd, valid_len, int(causal), int(window),
-                    hd ** -0.5, float(softcap), stream_of(dev))
+                    int(prefix_len), hd ** -0.5, float(softcap), stream_of(dev))
     raise_on_error("flash_attn", rc)
     launches["flash_attn"] += 1
     return o

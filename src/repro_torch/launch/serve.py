@@ -6,18 +6,25 @@ request stream, reporting throughput.
         [--device cuda|cpu]
 
 The flags are those of the JAX package's launcher, plus ``--device``.  The
-default arch is ``gemma3-1b``, as the JAX launcher's; granite-3-8b,
-gemma3-12b, qwen1.5-32b, recurrentgemma-2b, xlstm-350m,
-llama4-scout-17b-a16e and arctic-480b run too (the MoE archs' full
-configs do not fit one card: run them with ``--smoke``); whisper-medium
-and paligemma-3b raise ``NotImplementedError``, as does ``--ckpt`` until
-checkpoints are ported.  Parameters are random, drawn from seed 0 on the
-chosen device.
+default arch is ``gemma3-1b``, as the JAX launcher's; every other arch
+runs too (the MoE archs' full configs do not fit one card: run them with
+``--smoke``).  ``--ckpt`` raises ``NotImplementedError`` until checkpoints
+are ported.  Parameters are random, drawn from seed 0 on the chosen
+device.  Whisper-medium and paligemma-3b requests carry their modality
+stub, drawn with numpy from the same seed (standard normal, f32, as the
+JAX package's ``SyntheticLM`` draws its ``extras``): whisper ``enc_embed``
+of ENC_FRAMES frames (30 s of audio at whisper's 50 frames a second after
+its convolution's stride; SMOKE_ENC_FRAMES with ``--smoke``), paligemma
+``patches`` of ``prefix_len`` rows (256: a 224-pixel image in 14-pixel
+patches).  A paligemma sequence is the patches and the prompt, so give it
+a ``--cache`` longer than ``prefix_len`` to keep the prompt's keys.
 """
 from __future__ import annotations
 
 import argparse
 import time
+
+ENC_FRAMES, SMOKE_ENC_FRAMES = 1500, 32
 
 
 def main(argv=None):
@@ -49,11 +56,15 @@ def main(argv=None):
           f"{model.device.type}: {cfg.num_layers} layers {cfg.block_pattern}")
     eng = ServeEngine(model, params, batch_slots=args.slots, s_cache=args.cache)
     rng = np.random.default_rng(0)
+    stub_rows = {"enc_embed": SMOKE_ENC_FRAMES if args.smoke else ENC_FRAMES,
+                 "patches": cfg.prefix_len}.get(model.stub)
     reqs = []
     for i in range(args.requests):
         plen = int(rng.integers(4, 16))
-        r = Request(i, rng.integers(0, cfg.vocab_size, (plen,)).astype(np.int32),
-                    max_new=args.max_new)
+        prompt = rng.integers(0, cfg.vocab_size, (plen,)).astype(np.int32)
+        extras = None if model.stub is None else {model.stub: rng.standard_normal(
+            (stub_rows, cfg.d_model), dtype=np.float32)}
+        r = Request(i, prompt, max_new=args.max_new, extras=extras)
         reqs.append(r)
         eng.submit(r)
     t0 = time.perf_counter()

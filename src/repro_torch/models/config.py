@@ -1,10 +1,11 @@
 """Model configurations: the port's own copy of the JAX package's
 ``models/config.py`` (pure Python, held equal to it by the tests).
 
-``block_pattern`` is cycled over ``num_layers``.  The port runs the
-families whose blocks are ``"attn"``, ``"attn_local"``, ``"rec"``,
-``"mlstm"`` or ``"slstm"``, with or without experts (no encoder or
-prefix); :class:`repro_torch.models.model.Model` raises for the others.
+``block_pattern`` is cycled over ``num_layers``.  The port runs every
+configuration here: decoder blocks ``"attn"``, ``"attn_local"``,
+``"rec"``, ``"mlstm"`` or ``"slstm"``, with or without experts, whisper's
+encoder and paligemma's prefix; :class:`repro_torch.models.model.Model`
+raises for other decoder block kinds.
 """
 from __future__ import annotations
 

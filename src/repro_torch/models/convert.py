@@ -5,10 +5,13 @@ a leading ``reps`` axis (``params["blocks"]["p<pos>"]``) with the pattern's
 remainder in ``params["tail"]``.  :func:`from_jax` takes that pytree as
 numpy arrays (``jax.tree.map(np.asarray, params)``) and returns the port's
 parameters: one entry per layer, in layer order (the pattern's full
-repetitions, then its tail; an MoE layer's expert stacks ``(E, D, F)``),
-weights in the compute dtype and the ``F32_LEAVES`` in f32, on ``device``
-(the card unless the caller asks for ``"cpu"``, as every entry point of
-the port).
+repetitions, then its tail; an MoE layer's expert stacks ``(E, D, F)``;
+whisper's decoder blocks with their ``xattn``), whisper's encoder blocks
+(``params["encoder"]["blocks"]["p0"]``, stacked over ``encoder_layers``)
+as ``{"layers": [...], "ln"}``, paligemma's ``patch_proj`` and the
+embedding's untied ``out`` table where there are, weights in the compute
+dtype and the ``F32_LEAVES`` in f32, on ``device`` (the card unless the
+caller asks for ``"cpu"``, as every entry point of the port).
 """
 from __future__ import annotations
 
@@ -52,6 +55,18 @@ def from_jax(params: dict, cfg: ModelConfig, *, device="cuda") -> dict:
     if len(layers) != cfg.num_layers:
         raise ValueError(f"{len(layers)} layers in the pytree, config has "
                          f"{cfg.num_layers}")
-    return {"embed": _tensors(params["embed"], dtype, device),
-            "final_ln": _tensors(params["final_ln"], dtype, device),
-            "layers": layers}
+    out = {"embed": _tensors(params["embed"], dtype, device),
+           "final_ln": _tensors(params["final_ln"], dtype, device),
+           "layers": layers}
+    if "encoder" in params:
+        enc = params["encoder"]
+        reps = len(enc["blocks"]["p0"]["mix"]["ln"]["scale"])
+        if reps != cfg.encoder_layers:
+            raise ValueError(f"{reps} encoder layers in the pytree, config has "
+                             f"{cfg.encoder_layers}")
+        out["encoder"] = {"layers": [_tensors(enc["blocks"]["p0"], dtype, device, rep=r)
+                                     for r in range(reps)],
+                          "ln": _tensors(enc["ln"], dtype, device)}
+    if "patch_proj" in params:
+        out["patch_proj"] = _tensors(params["patch_proj"], dtype, device)
+    return out

@@ -1,8 +1,9 @@
-"""Layer library of the port's LM serving path: the parts of the JAX
-package's ``models/layers.py`` that the ported families run (causal and
-sliding-window attention with an optional score softcap, QKV bias and an
-int8 KV cache, the SwiGLU MLP, the tied embedding), in torch.  The
-experts are in :mod:`.moe`, the recurrent blocks in :mod:`.recurrent`.
+"""Layer library of the port's LM serving path: the JAX package's
+``models/layers.py`` in torch (full, causal, prefix-LM and sliding-window
+attention with an optional score softcap, cross-attention over encoder
+states, QKV bias and an int8 KV cache, the SwiGLU MLP, tied or untied
+embeddings, whisper's sinusoidal positions).  The experts are in
+:mod:`.moe`, the recurrent blocks in :mod:`.recurrent`.
 
 Parameters are plain dicts of tensors with the JAX names.  Weights are held
 in the compute dtype (bf16 on the card) and norm scales in f32; the casts
@@ -20,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -32,7 +34,7 @@ __all__ = [
     "apply_rope", "flash_attention", "decode_attention",
     "init_attention", "attention_apply", "attention_decode",
     "init_mlp", "mlp_apply", "init_embedding", "embed_apply", "unembed_apply",
-    "softcap", "quantize_int8",
+    "softcap", "quantize_int8", "sinusoidal_positions",
 ]
 
 UNPORTED = "not ported yet (ROADMAP A12)"
@@ -118,6 +120,19 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return cap * torch.tanh(x / cap)
 
 
+def sinusoidal_positions(length: int, d: int, offset: int = 0) -> torch.Tensor:
+    """Whisper's fixed sinusoidal position table ``(length, d)`` f32 for
+    positions ``offset ..``: angles in f64, sines in the even columns and
+    cosines in the odd ones."""
+    pos = np.arange(offset, offset + length, dtype=np.float64)[:, None]
+    dim = np.arange(0, d, 2, dtype=np.float64)[None, :]
+    inv = np.exp(-np.log(10000.0) * dim / d)
+    tab = np.zeros((length, d), dtype=np.float32)
+    tab[:, 0::2] = np.sin(pos * inv)
+    tab[:, 1::2] = np.cos(pos * inv)
+    return torch.from_numpy(tab)
+
+
 # --------------------------------------------------------------------------
 # RoPE
 # --------------------------------------------------------------------------
@@ -150,20 +165,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, spec: RopeSpec) -> torc
 # --------------------------------------------------------------------------
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    kind: str = "causal", window: int = 0,
+                    kind: str = "causal", window: int = 0, prefix_len: int = 0,
                     softcap_val: float = 0.0) -> torch.Tensor:
     """``q``: ``(B, Sq, Hq, hd)``, ``k``/``v``: ``(B, Sk, Hkv, hd)`` on the
-    flash-attention kernel; ``kind`` ``"causal"`` or ``"window"`` (causal
+    flash-attention kernel; ``kind`` ``"full"`` (no mask; ``Sq`` may differ
+    from ``Sk``), ``"causal"``, ``"prefix"`` (causal, and the first
+    ``prefix_len`` keys live for every query) or ``"window"`` (causal
     sliding window of ``window`` keys); ``softcap_val > 0`` caps the
     scaled scores before the mask."""
-    if kind in ("causal", "window"):
-        return flash_attention_kernel(q, k, v, causal=True,
-                                      window=window if kind == "window" else 0,
-                                      softcap=softcap_val)
-    if kind in ("full", "prefix"):
-        raise NotImplementedError(f"attention kind {kind!r} {UNPORTED}: "
-                                  "whisper, paligemma")
-    raise ValueError(kind)
+    if kind not in ("full", "causal", "prefix", "window"):
+        raise ValueError(kind)
+    return flash_attention_kernel(q, k, v, causal=kind != "full",
+                                  window=window if kind == "window" else 0,
+                                  softcap=softcap_val,
+                                  prefix_len=prefix_len if kind == "prefix" else 0)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -198,54 +213,78 @@ def quantize_int8(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.round(tf / scale[..., None]).to(torch.int8), scale
 
 
-def init_attention(init: Init, cfg: ModelConfig) -> dict:
+def init_attention(init: Init, cfg: ModelConfig, *, cross: bool = False) -> dict:
+    """An attention block; a ``cross`` block (whisper's decoder) also has
+    ``ln_kv``, the norm of the encoder states its keys and values read."""
     D, hd = cfg.d_model, cfg.hd
     Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
-    return {
+    p = {
         "ln": init_rms_norm(init, D),
         "q": init_dense(init, D, (Hq, hd), bias=cfg.qkv_bias),
         "k": init_dense(init, D, (Hkv, hd), bias=cfg.qkv_bias),
         "v": init_dense(init, D, (Hkv, hd), bias=cfg.qkv_bias),
         "o": init_dense(init, Hq * hd, D, scale=(Hq * hd) ** -0.5),
     }
+    if cross:
+        p["ln_kv"] = init_rms_norm(init, D)
+    return p
 
 
 def attention_apply(params: dict, cfg: ModelConfig, x: torch.Tensor,
                     positions: torch.Tensor, *, kind: str = "causal",
-                    return_kv: bool = False):
-    """Pre-norm GQA self-attention block with RoPE and its residual, the
-    mask ``kind`` ``"causal"`` or ``"window"`` (``cfg.window`` keys):
-    ``x`` ``(B, S, D)`` → ``(B, S, D)``; with ``return_kv`` also the
-    block's ``(k, v)`` (``k`` after RoPE), which prefill writes to the
-    cache."""
+                    kv_src: Optional[torch.Tensor] = None, rope: bool = True,
+                    prefix_len: int = 0, return_kv: bool = False):
+    """Pre-norm GQA attention block and its residual, the mask ``kind`` of
+    :func:`flash_attention` (``cfg.window`` keys for ``"window"``,
+    ``prefix_len`` for ``"prefix"``): ``x`` ``(B, S, D)`` → ``(B, S,
+    D)``.  Self-attention takes RoPE on ``q`` and ``k`` unless ``rope`` is
+    false; with ``kv_src`` ``(B, Se, D)`` (cross-attention, ``kind``
+    ``"full"``) the keys and values come from ``rms_norm(ln_kv, kv_src)``
+    and take no RoPE.  With ``return_kv`` also the block's ``(k, v)``,
+    which prefill writes to the cache."""
     h = rms_norm(params["ln"], x)
-    q, k, v = dense(params["q"], h), dense(params["k"], h), dense(params["v"], h)
-    spec = RopeSpec(cfg.hd, cfg.rope_theta)
-    q = apply_rope(q, positions, spec)
-    k = apply_rope(k, positions, spec)
+    src = h if kv_src is None else rms_norm(params["ln_kv"], kv_src)
+    q, k, v = dense(params["q"], h), dense(params["k"], src), dense(params["v"], src)
+    if rope and kv_src is None:
+        spec = RopeSpec(cfg.hd, cfg.rope_theta)
+        q = apply_rope(q, positions, spec)
+        k = apply_rope(k, positions, spec)
     o = flash_attention(q, k, v, kind=kind, window=cfg.window,
-                        softcap_val=cfg.logit_softcap)
+                        prefix_len=prefix_len, softcap_val=cfg.logit_softcap)
     B, S = x.shape[:2]
     out = x + dense(params["o"], o.reshape(B, S, cfg.n_heads * cfg.hd))
     return (out, (k, v)) if return_kv else out
 
 
 def attention_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                     cache: dict, idx: int, *,
-                     local: bool = False) -> tuple[torch.Tensor, dict]:
+                     cache: dict, idx: int, *, local: bool = False,
+                     enc_out: Optional[torch.Tensor] = None,
+                     rope: bool = True) -> tuple[torch.Tensor, dict]:
     """One decode step ``x`` ``(B, 1, D)`` at position ``idx``: writes this
     token's K/V into ``cache`` (in place) and attends over it.  A global
     layer writes slot ``idx``, clamped to the cache's last slot as the JAX
     package's ``dynamic_update_slice`` clamps it, and attends over entries
     ``< idx + 1``; a ``local`` layer's cache is a ring: it writes slot
     ``idx % S`` and attends over ``min(idx + 1, S)`` slots.  A cache with a
-    ``scale`` leaf is int8: the token's K/V are quantized per head."""
+    ``scale`` leaf is int8: the token's K/V are quantized per head.  RoPE
+    unless ``rope`` is false.  With ``enc_out`` ``(B, Se, D)`` the block is
+    cross-attention: keys and values of ``rms_norm(ln_kv, enc_out)``,
+    recomputed every step, over all ``Se`` of them; ``cache`` is returned
+    untouched."""
     h = rms_norm(params["ln"], x)
+    B = x.shape[0]
+    if enc_out is not None:
+        src = rms_norm(params["ln_kv"], enc_out)
+        k, v = dense(params["k"], src), dense(params["v"], src)
+        o = decode_attention(dense(params["q"], h), k, v, k.shape[1],
+                             softcap_val=cfg.logit_softcap)
+        return x + dense(params["o"], o.reshape(B, 1, cfg.n_heads * cfg.hd)), cache
     q, k, v = dense(params["q"], h), dense(params["k"], h), dense(params["v"], h)
-    spec = RopeSpec(cfg.hd, cfg.rope_theta)
-    pos = torch.full((x.shape[0], 1), idx, dtype=torch.int32, device=x.device)
-    q = apply_rope(q, pos, spec)
-    k = apply_rope(k, pos, spec)
+    if rope:
+        spec = RopeSpec(cfg.hd, cfg.rope_theta)
+        pos = torch.full((B, 1), idx, dtype=torch.int32, device=x.device)
+        q = apply_rope(q, pos, spec)
+        k = apply_rope(k, pos, spec)
     S = cache["k"].shape[1]
     if local:
         slot, cur = idx % S, min(idx + 1, S)
@@ -262,7 +301,6 @@ def attention_decode(params: dict, cfg: ModelConfig, x: torch.Tensor,
     o = decode_attention(q, cache["k"], cache["v"], cur,
                          softcap_val=cfg.logit_softcap,
                          kv_scale=cache.get("scale"))
-    B = x.shape[0]
     return x + dense(params["o"], o.reshape(B, 1, cfg.n_heads * cfg.hd)), cache
 
 
@@ -289,11 +327,16 @@ def mlp_apply(params: dict, x: torch.Tensor, *, residual: bool = True) -> torch.
 
 
 # --------------------------------------------------------------------------
-# Embedding / unembedding (tied, vocab padded to ``vocab_pad``)
+# Embedding / unembedding (vocab padded to ``vocab_pad``)
 # --------------------------------------------------------------------------
 
 def init_embedding(init: Init, cfg: ModelConfig) -> dict:
-    return {"tok": init.normal((cfg.vocab_pad, cfg.d_model), 1.0)}
+    """The token table ``tok``; untied embeddings add the output table
+    ``out`` (std ``d_model ** -0.5``)."""
+    p = {"tok": init.normal((cfg.vocab_pad, cfg.d_model), 1.0)}
+    if not cfg.tied_embeddings:
+        p["out"] = init.normal((cfg.vocab_pad, cfg.d_model), cfg.d_model ** -0.5)
+    return p
 
 
 def embed_apply(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -303,5 +346,8 @@ def embed_apply(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def unembed_apply(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    logits = torch.matmul(x, params["tok"].to(x.dtype).t())
+    """Logits over the padded vocab: ``x`` against the ``out`` table where
+    the embeddings are untied, else the token table."""
+    table = params.get("out", params["tok"])
+    logits = torch.matmul(x, table.to(x.dtype).t())
     return softcap(logits, cfg.logit_softcap)

@@ -6,9 +6,17 @@ A fixed pool of ``B`` decode slots; finished sequences are replaced from
 the admission queue each step.  Per-slot state lives in one batched KV
 cache; a joining request is prefilled alone (batch 1) and every leaf of
 its per-layer cache (``k``, ``v``, ``scale``; the recurrent states ``h``,
-``C``, ``n``, ``m``, ``c``; ``conv``) is copied into its slot.  As in the JAX engine, every slot decodes at one
+``C``, ``n``, ``m``, ``c``; ``conv``), and whisper's encoder output
+``enc_out``, is copied into its slot.  As in the JAX engine, every slot decodes at one
 shared position, the largest ``idx`` of the requests joined so far, so a
 slot that joins later with a shorter prompt decodes past its own length.
+
+Whisper and paligemma requests carry their modality stub in
+``Request.extras`` (``{"enc_embed": (Se, D)}`` frames, the same ``Se`` for
+every request of one engine, or ``{"patches": (prefix_len, D)}``), which
+the request's prefill takes; a request without its model's stub, or with
+another, is refused at ``submit``.  The JAX engine prefills the tokens
+alone and cannot serve these two (ROADMAP C-ref 10).
 
 The SpTRSV half of this module is the **per-factor worker** of the
 multi-tenant solve service: :class:`SolveEngine` owns one factor pair
@@ -45,6 +53,7 @@ class Request:
     max_new: int = 16
     out: Optional[list] = None
     done: bool = False
+    extras: Optional[dict] = None   # modality stub (enc_embed / patches)
 
 
 class ServeEngine:
@@ -59,8 +68,10 @@ class ServeEngine:
         self.slots: List[Optional[Request]] = [None] * batch_slots
         self.remaining = np.zeros(batch_slots, np.int32)
         self._decode = model.decode_step
-        self._prefill = lambda p, tokens: model.prefill(p, tokens, self.s_cache)
+        self._prefill = lambda p, tokens, **stub: model.prefill(
+            p, tokens, self.s_cache, **stub)
         self.cache = model.init_cache(batch_slots, s_cache)
+        self.enc_len: Optional[int] = None      # Se of every audio request
         self.tokens = torch.zeros((batch_slots, 1), dtype=torch.long,
                                   device=model.device)
         self.steps = 0
@@ -68,19 +79,47 @@ class ServeEngine:
 
     # -- admission ------------------------------------------------------------
     def submit(self, req: Request):
+        """Queue ``req``; ``ValueError`` unless its ``extras`` hold exactly
+        the model's stub, one 2-D array (an audio request's frames as many
+        as the engine's other requests')."""
+        stub = self.model.stub
+        given = sorted(req.extras or {})
+        if given != ([stub] if stub else []):
+            raise ValueError(f"request {req.rid}: {self.model.cfg.name} takes "
+                             f"extras {[stub] if stub else []}, got {given}")
+        if stub:
+            shape = np.shape(req.extras[stub])
+            if len(shape) != 2:
+                raise ValueError(f"request {req.rid}: {stub} {shape} is not 2-D")
+            if stub == "enc_embed":
+                if self.enc_len is None:
+                    self.enc_len = shape[0]
+                elif shape[0] != self.enc_len:
+                    raise ValueError(f"request {req.rid}: {shape[0]} encoder "
+                                     f"frames, the engine's requests have "
+                                     f"{self.enc_len}")
         req.out = []
         self.queue.append(req)
 
     def _join(self, slot: int, req: Request):
-        """Prefill a single joining request and copy every leaf of its
-        per-layer cache into ``slot`` of the batched cache."""
+        """Prefill a single joining request (with its stub) and copy every
+        leaf of its per-layer cache, and its ``enc_out``, into ``slot`` of
+        the batched cache."""
+        dev = self.model.device
         prompt = torch.as_tensor(np.asarray(req.prompt)[None], dtype=torch.long,
-                                 device=self.model.device)
-        logits, cache1 = self._prefill(self.params, prompt)
+                                 device=dev)
+        stub = {name: torch.as_tensor(np.asarray(a, np.float32)[None], device=dev)
+                for name, a in (req.extras or {}).items()}
+        logits, cache1 = self._prefill(self.params, prompt, **stub)
         self.prefills += 1
         for big, small in zip(self.cache["layers"], cache1["layers"]):
             for name, leaf in small.items():
                 big[name][slot] = leaf[0]
+        if "enc_out" in cache1:
+            enc = cache1["enc_out"]
+            if self.cache["enc_out"].shape[1:] != enc.shape[1:]:
+                self.cache["enc_out"] = enc.new_zeros((self.B, *enc.shape[1:]))
+            self.cache["enc_out"][slot] = enc[0]
         self.cache["idx"] = max(self.cache["idx"], cache1["idx"])
         tok = int(logits[0, -1].argmax())
         self.tokens[slot, 0] = tok

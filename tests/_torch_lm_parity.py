@@ -81,20 +81,23 @@ class Pair:
 
 
 @functools.lru_cache(maxsize=None)
-def _tree(arch: str, tail: bool, seed: int) -> dict:
+def _tree(arch: str, tail: bool, seed: int, tied: bool = True) -> dict:
     """The JAX init's f32 masters (the same for every compute dtype), with
     seeded noise in the leaves it leaves at zero."""
-    jm = JaxModel(configs(arch, "float32", tail=tail)[0], remat=False)
+    jm = JaxModel(configs(arch, "float32", tail=tail, tied_embeddings=tied)[0],
+                  remat=False)
     return noisy(jax.tree.map(np.asarray, jax.jit(jm.init)(jax.random.key(seed))),
                  seed + 100)
 
 
 @functools.lru_cache(maxsize=None)
 def pair(arch: str, dtype: str, kv: str | None = None, tail: bool = True,
-         seed: int = 0) -> Pair:
-    jcfg, cfg = configs(arch, dtype, kv, tail)
+         seed: int = 0, tied: bool = True) -> Pair:
+    """Both packages' models of :func:`configs` on the same parameters;
+    ``tied=False`` unties the embeddings (the JAX init's ``out`` table)."""
+    jcfg, cfg = configs(arch, dtype, kv, tail, tied_embeddings=tied)
     jm = JaxModel(jcfg, remat=False)
-    tree = _tree(arch, tail, seed)
+    tree = _tree(arch, tail, seed, tied)
     pm = Model(cfg, device="cpu")
     return Pair(jcfg, cfg, jm, jax.tree.map(jnp.asarray, tree), pm,
                 from_jax(tree, cfg, device="cpu"),
@@ -152,16 +155,21 @@ def assert_cache_close(p: Pair, cache, jcache, tol: dict) -> None:
                 assert rel(port[name], ref[name]) <= tol[kind], (i, name)
 
 
-def run_both(p: Pair, prompt: np.ndarray, s_cache: int, steps: int, seed: int):
-    """Prefill ``prompt`` and decode ``steps`` tokens in both packages:
-    ``(logit pairs, (port cache, JAX cache) after prefill, after the
-    last step)``."""
-    got, cache = p.pm.prefill(p.pp, torch.from_numpy(prompt), s_cache)
-    want, jcache = p.prefill(p.jp, {"tokens": jnp.asarray(prompt)}, s_cache)
+def run_both(p: Pair, prompt: np.ndarray, s_cache: int, steps: int, seed: int,
+             stub: dict | None = None):
+    """Prefill ``prompt`` (with the modality ``stub``, ``{name: numpy
+    array}``, where the arch takes one) and decode ``steps`` tokens in both
+    packages: ``(logit pairs, (port cache, JAX cache) after prefill, after
+    the last step)``."""
+    stub = stub or {}
+    got, cache = p.pm.prefill(p.pp, torch.from_numpy(prompt), s_cache,
+                              **{k: torch.tensor(a) for k, a in stub.items()})
+    want, jcache = p.prefill(p.jp, dict({"tokens": jnp.asarray(prompt)},
+                                        **{k: jnp.asarray(a) for k, a in stub.items()}),
+                             s_cache)
     logits = [(got, want)]
-    after_prefill = ({"idx": cache["idx"],
-                      "layers": [{k: t.clone() for k, t in slot.items()}
-                                 for slot in cache["layers"]]}, jcache)
+    after_prefill = (dict(cache, layers=[{k: t.clone() for k, t in slot.items()}
+                                         for slot in cache["layers"]]), jcache)
     for t in tokens(seed, (steps, prompt.shape[0], 1)):
         got, cache = p.pm.decode_step(p.pp, torch.from_numpy(t), cache)
         want, jcache = p.decode(p.jp, jnp.asarray(t), jcache)
@@ -170,14 +178,15 @@ def run_both(p: Pair, prompt: np.ndarray, s_cache: int, steps: int, seed: int):
 
 
 def run_engine(engine_cls, request_cls, model, params, prompts, *, slots=2,
-               s_cache=32, max_new=4):
-    """Serve ``prompts`` through an engine, recording every logits array."""
+               s_cache=32, max_new=4, extras=None):
+    """Serve ``prompts`` through an engine (request ``i`` with ``extras[i]``
+    where given), recording every logits array."""
     eng = engine_cls(model, params, batch_slots=slots, s_cache=s_cache)
     logits = []
 
     def record(fn):
-        def wrapped(*args):
-            out = fn(*args)
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
             logits.append(out[0].float().numpy() if torch.is_tensor(out[0])
                           else np.asarray(out[0], np.float32))
             return out
@@ -186,6 +195,8 @@ def run_engine(engine_cls, request_cls, model, params, prompts, *, slots=2,
     eng._prefill = record(eng._prefill)
     eng._decode = record(eng._decode)
     reqs = [request_cls(i, pr, max_new=max_new) for i, pr in enumerate(prompts)]
+    for r, ex in zip(reqs, extras or ()):
+        r.extras = ex
     for r in reqs:
         eng.submit(r)
     eng.run(max_steps=200)

@@ -2,9 +2,11 @@
 on the same CUDA tensors; the solver's kernel strategies, with and without
 equation rewriting, against the plain ``levelset`` executor; the scatter
 layout's level step and its blocked solve's block applies on a path; the
-blocked solve against a dense solve; the flash kernel's score softcap and
-its query groups of 5 and 7 (llama4-scout, arctic); each LM family's
-prefill and decode on the card against the same model on the CPU; and the
+blocked solve against a dense solve; the flash kernel's score softcap,
+its query groups of 5 and 7 (llama4-scout, arctic), its prefix-LM mask
+(paligemma) and whisper's full and cross-attention shapes; each LM
+family's prefill and decode on the card against the same model on the
+CPU; and the
 MoE layer, locally and expert parallel on one NCCL rank, against its CPU
 run.  Marked ``cuda``: they skip where no GPU is
 visible, and run on a machine with one via
@@ -665,6 +667,147 @@ def test_flash_rejects_a_negative_softcap(card):
     for cap in (-1.0, float("nan"), float("inf")):
         with pytest.raises(ValueError, match="softcap"):
             flash_cuda.flash_attn(q, q, q, softcap=cap)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [64, 256])
+@pytest.mark.parametrize("S", [64, 300, 2048])
+def test_flash_prefix_matches_plain(card, S, hd, dtype):
+    """The prefix-LM mask ``(k <= q) | (k < prefix_len)`` in both kernels:
+    prefixes of 1, one tile less one, one tile, one more, paligemma's 256
+    and the whole sequence (those up to S), query groups of 1 and 8, all
+    keys valid and valid_len < S; and valid_len 0 (every row dead: the mean
+    of v)."""
+    for prefix in sorted({p for p in (1, 63, 64, 65, 256, S) if p <= S}):
+        for Hq, Hkv in ((2, 2), (8, 1)):
+            for valid_len in (None, S - 37 if S > 64 else 50):
+                _flash_case(card, dtype, 1, S, S, Hq, Hkv, hd, seed=S + prefix + Hq,
+                            causal=True, prefix_len=prefix, valid_len=valid_len)
+    _flash_case(card, dtype, 1, S, S, 8, 1, hd, seed=S, causal=True, prefix_len=S // 2,
+                valid_len=0)
+
+
+def test_flash_prefix_rejections(card):
+    """A prefix with ``causal=0`` or with a window, or outside ``[0, Sk]``:
+    the wrapper raises, and the C entry refuses the launch on its own."""
+    q = torch.zeros((1, 64, 2, 64), device=card)
+    for kw in (dict(causal=False, prefix_len=4), dict(window=8, prefix_len=4),
+               dict(prefix_len=65), dict(prefix_len=-1)):
+        with pytest.raises(ValueError, match="prefix_len"):
+            flash_cuda.flash_attn(q, q, q, **kw)
+    o = torch.empty_like(q)
+    for dtype in (torch.float32, torch.bfloat16):
+        qd, od = q.to(dtype), o.to(dtype)
+        for causal, window, prefix in ((0, 0, 4), (1, 8, 4), (1, 0, 65), (1, 0, -1)):
+            rc = flash_cuda._entry(dtype)(
+                od.data_ptr(), qd.data_ptr(), qd.data_ptr(), qd.data_ptr(), 1, 64, 64,
+                2, 2, 64, 64, causal, window, prefix, 0.125, 0.0,
+                torch.cuda.current_stream(card).cuda_stream)
+            assert rc != 0, (dtype, causal, window, prefix)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Sq,Sk", [(1500, 1500), (432, 1500), (32, 1500)],
+                         ids=["encoder", "cross-432", "cross-32"])
+def test_flash_whisper_shapes_match_plain(card, Sq, Sk, dtype):
+    """Whisper-medium's full attention: the encoder over 1,500 frames and
+    the decoder's cross-attention (``Sq != Sk``), 16 heads of 64."""
+    _flash_case(card, dtype, 1, Sq, Sk, 16, 16, 64, seed=Sq, causal=False)
+
+
+def _stub(model, B, rows, seed, dev):
+    if model.stub is None:
+        return {}
+    rows = rows if model.stub == "enc_embed" else model.cfg.prefix_len
+    return {model.stub: torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (B, rows, model.cfg.d_model), dtype=np.float32)).to(dev)}
+
+
+def _prefill_launches(cfg) -> int:
+    """Flash launches of one prefill: every attention layer, and whisper's
+    encoder layers and cross-attention blocks."""
+    n = sum(k.startswith("attn") for k in cfg.kinds())
+    return n + (cfg.encoder_layers + n if cfg.family == "audio" else 0)
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "paligemma-3b"])
+def test_stub_archs_on_card_match_cpu(card, arch):
+    """Whisper and paligemma at their smoke size (f32): prefill with the
+    modality stub and three decode steps on the card against the CPU, same
+    weights, tokens and stub (8e-3: the bf16 KV cache rounds in both, as
+    for the other families); then a ServeEngine of 2 slots over 3 requests
+    with a stub each."""
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = smoke_config(arch)
+    rng = np.random.default_rng(9)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 20))).int()
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 2, 1))).int()
+    out = {}
+    for dev in (torch.device("cpu"), card):
+        model = Model(cfg, device=dev)
+        params = model.init(torch.Generator().manual_seed(0))
+        before = flash_cuda.launches["flash_attn"]
+        logits, cache = model.prefill(params, toks.to(dev), 32,
+                                      **_stub(model, 2, 24, 3, dev))
+        steps = [logits]
+        for t in nxt:
+            logits, cache = model.decode_step(params, t.to(dev), cache)
+            steps.append(logits)
+        if dev.type == "cuda":
+            assert flash_cuda.launches["flash_attn"] - before == _prefill_launches(cfg)
+        out[dev.type] = torch.cat([t.float().cpu() for t in steps], 1)
+    assert torch.isfinite(out["cuda"]).all()
+    assert _rel(out["cuda"], out["cpu"]) <= 8e-3
+    eng = ServeEngine(model, params, batch_slots=2, s_cache=32)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32), max_new=6,
+                    extras={k: t[0].cpu().numpy() for k, t in _stub(model, 1, 24, i, "cpu").items()})
+            for i, n in enumerate((5, 12, 7))]
+    for r in reqs:
+        eng.submit(r)
+    before = flash_cuda.launches["flash_attn"]
+    eng.run(max_steps=100)
+    torch.cuda.synchronize()
+    assert all(r.done and len(r.out) == 7 for r in reqs)
+    assert flash_cuda.launches["flash_attn"] - before == 3 * _prefill_launches(cfg)
+
+
+@pytest.mark.parametrize("arch,rows,T", [("whisper-medium", 300, 32),
+                                         ("paligemma-3b", 256, 64)])
+def test_stub_arch_prefill_at_full_width_matches_cpu_bf16(card, arch, rows, T):
+    """Two layers of whisper (two encoder and two decoder layers) and of
+    paligemma at full width, bf16: the prefill's logits and cache on the
+    card (the flash kernel: full, cross and prefix) within 2e-2 of the
+    CPU's bf16 on the same weights, tokens and stub."""
+    from repro_torch.configs import get_config
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=2,
+                              encoder_layers=min(full.encoder_layers, 2))
+    model = Model(cfg, device=card)
+    params = model.init(torch.Generator(device=card).manual_seed(0))
+    cpu = Model(cfg, device="cpu")
+
+    def to_cpu(tree):
+        if isinstance(tree, list):
+            return [to_cpu(t) for t in tree]
+        return {k: to_cpu(v) if isinstance(v, (dict, list)) else v.cpu()
+                for k, v in tree.items()}
+
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab_size, (1, T)))
+    stub = _stub(model, 1, rows, 5, card)
+    before = flash_cuda.launches["flash_attn"]
+    got, cache = model.prefill(params, toks.to(card), T + rows, **stub)
+    torch.cuda.synchronize()
+    assert flash_cuda.launches["flash_attn"] - before == _prefill_launches(cfg)
+    want, wcache = cpu.prefill(to_cpu(params), toks, T + rows,
+                               **{k: t.cpu() for k, t in stub.items()})
+    assert torch.isfinite(got).all()
+    assert _rel(got.float().cpu(), want.float()) <= 2e-2
+    for a, b in zip(cache["layers"], wcache["layers"]):
+        assert _rel(a["k"].float().cpu(), b["k"].float()) <= 2e-2
+    if "enc_out" in cache:
+        assert _rel(cache["enc_out"].float().cpu(), wcache["enc_out"].float()) <= 2e-2
 
 
 def _fused_matrix(name):

@@ -2,7 +2,10 @@
 version (what the CPU runs, and what the CUDA kernel is held against on the
 card) against the Pallas ``flash_fwd`` under ``interpret=True`` and the
 jnp ``attention_ref`` on ``(BH, S, hd)``, and the GQA wrapper against the
-JAX ``flash_attention_kernel``.  Inputs are made with numpy from a seed.
+JAX ``flash_attention_kernel``; the prefix-LM mask and cross-attention
+(``Sq != Sk``), which no Pallas kernel of the JAX package takes, against
+the JAX model's ``flash_attention``.  Inputs are made with numpy from a
+seed.
 
 Tolerances: f32 1e-5 (both sum in f32, in another order; measured ≤ 6e-7);
 bf16 2e-2, as the JAX package's tests/test_flash_kernel.py (outputs round
@@ -15,6 +18,7 @@ import torch
 from repro.kernels.flash_attn import attention_ref as jax_attention_ref
 from repro.kernels.flash_attn import flash_attention_kernel as jax_flash_attention_kernel
 from repro.kernels.flash_attn.kernel import flash_fwd
+from repro.models import layers as jl
 from repro_torch.kernels.flash_attn import cuda as flash_cuda
 from repro_torch.kernels.flash_attn.ops import flash_attention_kernel
 from repro_torch.kernels.flash_attn.ref import attention_ref, gqa_attention_ref
@@ -84,3 +88,70 @@ def test_wrappers_refuse_other_devices():
     meta = q.to("meta")
     with pytest.raises(ValueError, match="no flash-attention kernel"):
         flash_attention_kernel(meta, meta, meta)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_full_attention_matches_pallas_kernel(dtype):
+    """``causal=False`` (whisper's encoder) against the Pallas kernel."""
+    (jq, jk, jv), (q, k, v) = _inputs(7, [(2, 256, 64)] * 3, dtype)
+    got = attention_ref(q, k, v, causal=False)
+    _close(got, flash_fwd(jq, jk, jv, jnp.asarray([256], jnp.int32), causal=False,
+                          interpret=True), dtype)
+
+
+def _gqa_inputs(seed, B, Sq, Sk, Hq, Hkv, hd, dtype):
+    return _inputs(seed, [(B, Sq, Hq, hd), (B, Sk, Hkv, hd), (B, Sk, Hkv, hd)], dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("prefix_len", [1, 17, 64, 100], ids=lambda p: f"prefix{p}")
+def test_prefix_mask_matches_model_flash(prefix_len, dtype):
+    """The prefix-LM mask ``(k <= q) | (k < prefix_len)``, GQA, ragged S,
+    against the JAX model's ``kind="prefix"`` with ``block_k`` at least the
+    prefix (ROADMAP C-ref 12: a smaller block drops prefix keys there)."""
+    (jq, jk, jv), (q, k, v) = _gqa_inputs(prefix_len, 2, 100, 100, 4, 2, 16, dtype)
+    got = flash_attention_kernel(q, k, v, causal=True, prefix_len=prefix_len)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _close(got, jl.flash_attention(jq, jk, jv, kind="prefix", prefix_len=prefix_len,
+                                   block_q=32, block_k=max(64, prefix_len)), dtype)
+    if prefix_len == 100:      # every key live: the full mask
+        _close(got, gqa_attention_ref(q, k, v, causal=False), dtype)
+
+
+def test_jax_prefix_drops_keys_past_its_first_block():
+    """ROADMAP C-ref 12: the JAX model's prefix mask visits key blocks as
+    the causal mask does, so with ``block_k < prefix_len`` the early
+    queries miss prefix keys; the port's mask has no such limit."""
+    (jq, jk, jv), (q, k, v) = _gqa_inputs(3, 1, 96, 96, 2, 1, 16, "float32")
+    got = flash_attention_kernel(q, k, v, causal=True, prefix_len=48)
+    whole = jl.flash_attention(jq, jk, jv, kind="prefix", prefix_len=48,
+                               block_q=32, block_k=64)
+    cut = jl.flash_attention(jq, jk, jv, kind="prefix", prefix_len=48,
+                             block_q=32, block_k=32)
+    _close(got, whole, "float32")
+    first = np.abs(np.asarray(cut)[:, :32] - got.numpy()[:, :32]).max()
+    assert first > 1e-2
+    np.testing.assert_allclose(np.asarray(cut)[:, 32:], got.numpy()[:, 32:],
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Sq,Sk", [(40, 100), (130, 70)], ids=["Sq<Sk", "Sq>Sk"])
+def test_cross_attention_matches_model_flash(Sq, Sk, dtype):
+    """Whisper's cross-attention: full, ``Sq != Sk``, GQA."""
+    (jq, jk, jv), (q, k, v) = _gqa_inputs(Sq + Sk, 2, Sq, Sk, 4, 2, 16, dtype)
+    got = flash_attention_kernel(q, k, v, causal=False)
+    assert got.shape == q.shape
+    _close(got, jl.flash_attention(jq, jk, jv, kind="full", block_q=32,
+                                   block_k=32), dtype)
+
+
+def test_prefix_outside_a_causal_mask_is_refused():
+    """A prefix in ``[0, Sk]``, on a causal mask without a window: the CPU
+    dispatch makes the kernel wrapper's check."""
+    q = torch.zeros((1, 8, 2, 16))
+    for kw in (dict(causal=False, prefix_len=4), dict(window=4, prefix_len=4),
+               dict(prefix_len=9), dict(prefix_len=-1)):
+        with pytest.raises(ValueError, match="prefix_len"):
+            flash_attention_kernel(q, q, q, **kw)
+    flash_cuda.check_prefix(8, 8, True, 0)

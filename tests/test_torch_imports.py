@@ -35,7 +35,8 @@ CHECK = (
     "repro_torch.launch.mesh, repro_torch.bench.dist_solve, "
     "repro_torch.bench.lm_step, repro_torch.models.moe, "
     "repro_torch.configs.llama4_scout_17b_a16e, repro_torch.configs.arctic_480b, "
-    "repro_torch.configs.xlstm_350m, sys; "
+    "repro_torch.configs.xlstm_350m, repro_torch.configs.whisper_medium, "
+    "repro_torch.configs.paligemma_3b, sys; "
     "from repro_torch.serve import (ServeEngine, Request, SolveEngine, "
     "SolveRequest, SolverRegistry, SolverEntry, pattern_key, SolveService, "
     "TenantState, LatencyHistogram); "

@@ -78,35 +78,58 @@ def test_config_copy_matches_jax(arch):
     assert get(arch).params_B() == jax_config.get_config(arch).params_B()
 
 
-UNPORTED_ARCHS = ("whisper-medium", "paligemma-3b")
 PORTED_ARCHS = ("gemma3-1b", "gemma3-12b", "qwen1.5-32b", "recurrentgemma-2b",
-                "xlstm-350m", "llama4-scout-17b-a16e", "arctic-480b")
+                "xlstm-350m", "llama4-scout-17b-a16e", "arctic-480b",
+                "whisper-medium", "paligemma-3b")
+# what the port still refuses: a decoder block kind it has no path for (the
+# JAX package runs an "attn_bidir" decoder block as full attention; no
+# config has one) and a KV cache dtype outside bfloat16 / float32 / int8
+UNPORTED_CONFIGS = {"decoder attn_bidir": dict(block_pattern=("attn_bidir",)),
+                    "float16 KV cache": dict(kv_cache_dtype="float16")}
 
 
-@pytest.mark.parametrize("arch", UNPORTED_ARCHS)
-def test_unported_archs_raise(arch):
+@pytest.mark.parametrize("what", UNPORTED_CONFIGS)
+def test_unported_archs_raise(what):
+    cfg = dataclasses.replace(smoke_config(ARCH), **UNPORTED_CONFIGS[what])
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        Model(smoke_config(arch), device="cpu")
+        Model(cfg, device="cpu")
 
 
 def test_every_arch_is_ported_or_raises():
-    assert sorted(UNPORTED_ARCHS + PORTED_ARCHS + (ARCH,)) == sorted(jax_config.ARCHS)
+    """Every arch of the JAX package is ported: none raises."""
+    assert sorted(PORTED_ARCHS + (ARCH,)) == sorted(jax_config.ARCHS)
+    for arch in jax_config.ARCHS:
+        Model(get(arch), device="meta")
+
+
+def _stub(model, B, rows=12, seed=9):
+    """The modality stub ``model.prefill`` takes, as keywords: whisper's
+    ``rows`` frames, paligemma's ``prefix_len`` patches."""
+    if model.stub is None:
+        return {}
+    cfg = model.cfg
+    rows = rows if model.stub == "enc_embed" else cfg.prefix_len
+    return {model.stub: torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (B, rows, cfg.d_model)).astype(np.float32))}
 
 
 @pytest.mark.parametrize("arch", PORTED_ARCHS)
 def test_ported_archs_build_on_cpu(arch):
-    """The archs of the later LM slices build, init and run a prefill and a
-    decode step at their smoke size (the parity tests are in
-    ``tests/test_torch_lm_gemma3.py``, ``test_torch_lm_recurrent.py``,
-    ``test_torch_lm_moe.py`` and ``test_torch_lm_xlstm.py``)."""
+    """The archs of the later LM slices build, init and run a prefill (with
+    their modality stub) and a decode step at their smoke size (the parity
+    tests are in ``tests/test_torch_lm_gemma3.py``,
+    ``test_torch_lm_recurrent.py``, ``test_torch_lm_moe.py``,
+    ``test_torch_lm_xlstm.py``, ``test_torch_lm_whisper.py`` and
+    ``test_torch_lm_paligemma.py``)."""
     cfg = smoke_config(arch)
     model = Model(cfg, device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
     assert len(params["layers"]) == cfg.num_layers
-    logits, cache = model.prefill(params, torch.from_numpy(_tokens(1, (2, 11), 256)), 16)
+    logits, cache = model.prefill(params, torch.from_numpy(_tokens(1, (2, 11), 256)), 16,
+                                  **_stub(model, 2))
     logits, cache = model.decode_step(params, torch.zeros((2, 1), dtype=torch.long), cache)
     assert logits.shape == (2, 1, cfg.vocab_pad) and torch.isfinite(logits).all()
-    assert cache["idx"] == 12
+    assert cache["idx"] == 12 + cfg.prefix_len
 
 
 def _leaf_shapes(tree, prefix=()):
@@ -138,13 +161,25 @@ def test_param_shapes_match_jax_on_meta(arch):
               for i in range(reps * P)]
     layers += [_leaf_shapes(t) for t in want["tail"]]
     assert len(port["layers"]) == len(layers) == cfg.num_layers
+    if cfg.encoder_layers:
+        enc = {k: (shape[1:], dt) for k, (shape, dt)
+               in _leaf_shapes(want["encoder"]["blocks"]["p0"]).items()}
+        assert len(port["encoder"]["layers"]) == cfg.encoder_layers
+        layers += [enc] * cfg.encoder_layers
+        port["layers"] = port["layers"] + port["encoder"]["layers"]
     for got, ref in zip(port["layers"], layers):
         got = _leaf_shapes(got)
         assert got.keys() == ref.keys()
         for path, (shape, dtype) in got.items():
             assert shape == ref[path][0], path
             assert dtype == ("float32" if path[-1] in F32_LEAVES else "bfloat16"), path
-    for name in ("embed", "final_ln"):
+    tops = ("embed", "final_ln") + tuple(k for k in ("patch_proj",) if k in want)
+    assert set(port) - {"layers"} == set(tops) | ({"encoder"} if cfg.encoder_layers else set())
+    if cfg.encoder_layers:
+        tops += ("encoder",)
+        port["encoder"] = {"ln": port["encoder"]["ln"]}
+        want = dict(want, encoder={"ln": want["encoder"]["ln"]})
+    for name in tops:
         got, ref = _leaf_shapes(port[name]), _leaf_shapes(want[name])
         assert {k: v[0] for k, v in got.items()} == {k: v[0] for k, v in ref.items()}
 
@@ -286,12 +321,86 @@ def test_flash_attention_matches_model_flash(kind, window, dtype):
 
 
 def test_unported_attention_options_raise():
+    """Every attention kind of the JAX package runs; an unknown one raises,
+    and the launcher's ``--ckpt`` still raises until checkpoints are
+    ported."""
     q = torch.zeros((1, 8, 2, 16))
-    for kind in ("full", "prefix"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            pl.flash_attention(q, q, q, kind=kind)
+    for kind in ("full", "causal", "prefix", "window"):
+        assert pl.flash_attention(q, q, q, kind=kind, window=4,
+                                  prefix_len=3).shape == q.shape
+    with pytest.raises(ValueError, match="bidirectional"):
+        pl.flash_attention(q, q, q, kind="bidirectional")
     with pytest.raises(NotImplementedError, match="checkpoints"):
         launch_serve.main(["--smoke", "--device", "cpu", "--ckpt", "somewhere"])
+
+
+@pytest.mark.parametrize("offset", [0, 37])
+def test_sinusoidal_positions_match_jax(offset):
+    """Whisper's position table, from an offset (a decode step's): equal to
+    the JAX package's, both f64 angles rounded to f32."""
+    got = pl.sinusoidal_positions(9, 64, offset)
+    assert got.dtype == torch.float32 and got.shape == (9, 64)
+    np.testing.assert_array_equal(got.numpy(), jl.sinusoidal_positions(9, 64, offset))
+    np.testing.assert_array_equal(pl.sinusoidal_positions(1, 64, offset + 4).numpy(),
+                                  got.numpy()[4:5])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["full", "prefix", "cross"])
+def test_full_prefix_and_cross_attention_blocks_match_jax(case, dtype):
+    """The attention block with whisper's and paligemma's masks against the
+    JAX block: ``"full"`` without RoPE (the encoder), ``"prefix"`` with
+    RoPE (prefix 20 inside the JAX scan's one key block of 50: ROADMAP
+    C-ref 12), and cross-attention over 30 encoder states with ``ln_kv``."""
+    _, jp, _, pp = _pair(dtype)
+    cfg = _cfg(dtype)
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((2, 50, cfg.d_model)).astype(np.float32)
+    enc = rng.standard_normal((2, 30, cfg.d_model)).astype(np.float32)
+    ln_kv = (0.5 * rng.standard_normal(cfg.d_model)).astype(np.float32)
+    pos = np.tile(np.arange(50), (2, 1))
+    jblock = dict(jax.tree.map(lambda a: a[0], jp["blocks"]["p0"])["mix"],
+                  ln_kv={"scale": jnp.asarray(ln_kv)})
+    pblock = dict(pp["layers"][0]["mix"], ln_kv={"scale": torch.from_numpy(ln_kv)})
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    kw = {"full": dict(kind="full", rope=False),
+          "prefix": dict(kind="prefix", prefix_len=20),
+          "cross": dict(kind="full", rope=False)}[case]
+    got = pl.attention_apply(pblock, cfg, torch.from_numpy(x).to(tdt),
+                             torch.from_numpy(pos),
+                             kv_src=torch.from_numpy(enc).to(tdt) if case == "cross" else None,
+                             **kw)
+    want = jl.attention_apply(jblock, cfg, jnp.asarray(x, jdt), jnp.asarray(pos),
+                              kv_src=jnp.asarray(enc, jdt) if case == "cross" else None,
+                              **kw)
+    assert got.dtype == tdt and _rel(got, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_untied_embeddings_match_jax(dtype):
+    """``tied_embeddings=False``: the port's init draws an ``out`` table of
+    std ``d_model ** -0.5``, and with the JAX parameters carried across its
+    prefill and decode logits come from that table, as the JAX model's."""
+    over = dict(dtype=dtype, tied_embeddings=False, kv_cache_dtype="float32")
+    cfg = dataclasses.replace(smoke_config(ARCH), **over)
+    port = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))["embed"]
+    assert port["out"].shape == port["tok"].shape == (cfg.vocab_pad, cfg.d_model)
+    assert abs(port["out"].float().std().item() * cfg.d_model ** 0.5 - 1.0) < 0.1
+    jm = JaxModel(dataclasses.replace(jax_smoke_config(ARCH), **over), remat=False)
+    jp = jm.init(jax.random.key(5))
+    pm = Model(cfg, device="cpu")
+    pp = from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    assert set(pp["embed"]) == {"tok", "out"}
+    toks = _tokens(8, (2, 13), 256)
+    got, cache = pm.prefill(pp, torch.from_numpy(toks), 32)
+    want, jcache = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, 32)
+    assert _rel(got, want) <= TOL[dtype]
+    t = _tokens(9, (2, 1), 256)
+    got, _ = pm.decode_step(pp, torch.from_numpy(t), cache)
+    want, _ = jm.decode_step(jp, jnp.asarray(t), jcache)
+    assert _rel(got, want) <= TOL[dtype]
+    tied = dict(pp, embed={"tok": pp["embed"]["tok"]})
+    assert _rel(pm.prefill(tied, torch.from_numpy(toks), 32)[0], want) > 10 * TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
