@@ -11,7 +11,9 @@ serving path at full width, random weights from a seed: granite-3-8b (4
 of 40 layers), then gemma3-1b (6 of 26), recurrentgemma-2b (3 of 26),
 gemma3-12b (6 of 48) and qwen1.5-32b (2 of 64), then llama4-scout (2 of
 48), arctic (1 of 35) and xlstm-350m (8 of 24), then whisper-medium and
-paligemma-3b at full depth.
+paligemma-3b at full depth; and the training path: gemma3-1b trained at
+full width and depth through the training launcher, its checkpoint
+served, and tripre's SpTRSV preconditioner on its first 2 layers.
 
     python3 chip_smoke.py
 
@@ -90,15 +92,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
       sweeps); then the ``"cuda"`` calibration row re-measured
       (``repro_torch.bench.calibrate``) beside the committed one;
    f. the serving tier: ``SolveService(strategy="auto")`` on lung2 (f64)
-      registered with its planned build held, one forward and one
-      transpose request answered cold through the serial pair, the build
-      released and promoted (bounded wait, no build error), then the same
+      registered with its planned build held, one forward request
+      answered cold through the serial pair, the build released and
+      promoted (bounded wait, no build error), then forward and transpose
       requests, steps of 32 and of 1 each way (a width-1 step is one
       single-RHS launch and no batched one, a step of 32 one batched
-      launch), ``refresh`` and again; every answer against scipy's
-      ``spsolve_triangular`` to 1e-12, cold against promoted to 1e-10; a
-      NaN request in a guarded batch of 8 fails alone; then the port's
-      ``serve_bench`` at its full size (every request answered, none
+      launch); every answer against scipy's ``spsolve_triangular`` to
+      1e-12, cold against promoted to 1e-10; a NaN request in a guarded
+      batch of 8 fails alone; then the port's ``serve_bench`` at its smoke
+      size (its cold path, a refresh, every request answered, none
       failed, an eviction, the byte budget held, 20 answers against scipy
       to 1e-10) and the paper's experiments (``fig6_levels``,
       ``exp1_codegen``, ``exp2_rewrite``) on the full lung2 with the JAX
@@ -112,10 +114,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
       batch) and ``blocked`` on the band against scipy (one panel SpMV and
       one block apply launch per
       super-level); a scatter ``refresh`` (a cold rebuild) against a fresh
-      build; scatter beside permuted ms per solve; then the eight CI
-      benches (``refresh``, ``batch_solve``, ``coarsen``, ``blocked``,
-      ``sweep``, ``guard``, ``preconditioner``, ``rewrite_planner``) at
-      their smoke sizes: answer and structural gates held, planner and
+      build; scatter beside permuted ms per solve; then four of the eight
+      CI benches (``batch_solve``, ``coarsen``, ``sweep``,
+      ``preconditioner``; CARD_BENCHES' comment) at their smoke sizes:
+      answer and structural gates held, planner and
       speed gates printed as met or not, each writing
       ``bench_out/BENCH_<name>_cuda.json``, and phase 3e's calibration row
       as ``BENCH_calibrate_cuda.json``;
@@ -172,6 +174,26 @@ Phases (any failure ends the run with a non-zero exit and no result line):
       first 2 encoder and 2 decoder layers (1,500 frames, 64 tokens) and
       paligemma's first 2 layers (256 patches and 256 tokens); the launcher
       on each at full size;
+   l. the training path: (a) ``repro_torch.launch.train`` on gemma3-1b at
+      full width and depth (26 layers, f32 masters, bf16 compute, each
+      layer recomputed in the backward pass), 6 adamw steps of 8 x 512
+      tokens and a checkpoint in a temporary directory: a finite loss that
+      falls from the first step to the last, no recovered failure, the
+      flash kernel twice per attention layer and step (forward and
+      recompute; its backward is the plain version's); ms per step,
+      tokens/s, model FLOPs over the step time beside the bf16 peak, peak
+      memory, the save's seconds and bytes; then
+      ``repro_torch.launch.serve --ckpt`` on that checkpoint; (b) the
+      first 2 layers at full width (B 2, S 128) on the card against the
+      same f32 masters on the CPU in f32 and bf16: the loss within 2e-2
+      and every leaf's gradient within 5e-2 of the CPU's f32; the flash
+      Function's q, k, v gradients against autograd through the plain
+      version at gemma3-12b's capped and paligemma's prefix shapes; (c)
+      tripre through the launcher on the first 2 layers at full width, 3
+      steps: each factor's levels before and after the rewrite, the SpMV
+      launches per step (the rewritten solves' ``b' = E b``), seconds per
+      refresh and per step; one (1152, 6912) leaf's update against dense
+      f64 triangular solves on the card within 1e-4;
 4. CUDA-event times per solve and per kernel (median and range of three
    batches; a solve slower than the batch budget is timed once), beside
    each kernel's bound, its plain version and a library call, and the
@@ -204,6 +226,7 @@ GPU is visible or the port's sources are missing.
 from __future__ import annotations
 
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -301,6 +324,17 @@ PCG_SWEEPS, PCG_M, PCG_ITER_SLACK = 8, 32, 2
 # background build; the mixed traffic's answers checked on a sample
 SERVE_TOL, SERVE_COLD_TOL, SERVE_BATCH = 1e-12, 1e-10, 32
 SERVE_WAIT_S, SERVE_SAMPLE, SERVE_MIXED_TOL = 900, 20, 1e-10
+# Cuts that pay for phase 3l (PERF.md §4 has each one's seconds): 3f answers
+# one request cold on the full lung2 (forward; a cold transpose answer
+# through the serial pair took 11.5 s), refreshes no promoted pair there
+# (12.7 s for the transpose fused pair's 6.9 GB layout; 3a refreshes the
+# same solvers in place, and serve_bench refreshes through the tier) and
+# runs serve_bench at its smoke size (38.2 s at lung2_like(0.3)); 3g runs
+# the CI benches whose paths no other phase repeats at full size; the
+# refresh, blocked, guard and rewrite_planner benches (32.0 s) repeat 3a's
+# refresh, 3c's blocked walk, 3e's guard and 3e's auto planner.
+CARD_BENCHES = {"batch_solve": dict(dry_run=True), "coarsen": dict(smoke=True),
+                "sweep": dict(smoke=True), "preconditioner": dict(dry_run=True)}
 # phase 3g: the scatter layout on lung2 (f64), each case (tag, options,
 # the permuted twin phase 3 holds: (group, tag) or None); serial on a
 # smaller lung2 (a solve of the full one takes 6-7 s); the batch budget of
@@ -411,6 +445,29 @@ EP_ARCH = "llama4-scout-17b-a16e"
 EP_TOL = 2e-2
 # H100 SXM data sheet: dense bf16 tensor-core rate (the attention bound)
 BF16_TENSOR_FLOPS = 989e12
+# Phase 3l: the training path.  (a) gemma3-1b, the JAX launcher's default
+# arch, at full width and depth (26 layers, f32 masters, bf16 compute, each
+# layer recomputed in the backward pass) through the training launcher:
+# TRAIN_STEPS adamw steps of TRAIN_BATCH sequences of TRAIN_SEQ tokens, a
+# checkpoint at the end, then the serving launcher on that checkpoint.
+# (b) its first TRAIN_CHECK_LAYERS layers at full width on the card (bf16,
+# the flash kernel's forward, the plain backward) against the same f32
+# masters on the CPU in f32 and bf16 (the plain versions): the loss within
+# the LM phases' limit, every leaf's gradient within TRAIN_GRAD_TOL of the
+# CPU's f32 (max-norm relative); and the flash Function's q, k, v gradients
+# against autograd through the plain version on the card at
+# FLASH_GRAD_CASES' shapes.  (c) tripre through the launcher on the first
+# TRIPRE_LAYERS layers at full width, and one leaf's preconditioned update
+# against a dense f64 pair of triangular solves on the card.
+TRAIN_ARCH = "gemma3-1b"
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 6, 512, 8
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_B, TRAIN_CHECK_S = 2, 2, 128
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = LM_CPU_TOL, 5e-2
+FLASH_GRAD_CASES = {"gemma3-12b capped": (FLASH_CASES["gemma3-12b prefill"], 0),
+                    "paligemma prefix": ((1, 2048, 8, 1, 256, 0, 0.0), 256)}
+TRIPRE_LAYERS, TRIPRE_STEPS, TRIPRE_SEQ, TRIPRE_BATCH = 2, 3, 128, 8
+# tripre's update of one (d_model, d_ff) leaf against the dense f64 solves
+TRIPRE_TOL = 1e-4
 
 KERNELS = {
     "sptrsv_level": ("src/repro_torch/kernels/csrc/sptrsv_level.cu",
@@ -1445,10 +1502,10 @@ def solver_surface(torch, dev, rng, L, levelset, scipy_csr, counts) -> dict:
 
 def serving_tier(torch, dev, L, scipy_csr, reset_counts, counts) -> dict:
     """Phase 3f: (a) ``SolveService(strategy="auto")`` on lung2 in f64 —
-    cold answers through the serial pair while the planned build is held,
-    promotion, width-1 and width-SERVE_BATCH steps each way, a refresh, and
-    a NaN request in a guarded batch of 8; (b) the port's ``serve_bench``
-    at its full size; (c) ``fig6_levels``, ``exp1_codegen`` and
+    a forward answer through the serial pair while the planned build is
+    held, promotion, width-1 and width-SERVE_BATCH steps each way, and a
+    NaN request in a guarded batch of 8; (b) the port's ``serve_bench``
+    at its smoke size; (c) ``fig6_levels``, ``exp1_codegen`` and
     ``exp2_rewrite`` on the full lung2.  Counters are read only while no
     build runs.  Returns the launches of (a)-(b) and of (c)."""
     import gc
@@ -1518,13 +1575,12 @@ def serving_tier(torch, dev, L, scipy_csr, reset_counts, counts) -> dict:
         return X, c, took, err
 
     b1 = {tr: rng.standard_normal((L.n, 1)) for tr in (False, True)}
-    cold = {}
-    for tr in (False, True):
-        cold[tr], c, took, err = serve(b1[tr], tr, A)
-        check(entry.state == "cold", "serving: promoted while the gate was held")
-        print(f"phase 3f: cold answer transpose={int(tr)} through the serial "
-              f"pair: {took:.3f} s, vs scipy {err:.2e}; launches "
-              f"{json.dumps({k: v for k, v in c.items() if v})}")
+    cold = {}       # forward only (CARD_BENCHES' comment)
+    cold[False], c, took, err = serve(b1[False], False, A)
+    check(entry.state == "cold", "serving: promoted while the gate was held")
+    print(f"phase 3f: cold answer transpose=0 through the serial pair: "
+          f"{took:.3f} s, vs scipy {err:.2e}; launches "
+          f"{json.dumps({k: v for k, v in c.items() if v})}")
     gate.set()
     t0 = time.perf_counter()
     ready = entry.wait_ready(timeout=SERVE_WAIT_S)
@@ -1558,11 +1614,14 @@ def serving_tier(torch, dev, L, scipy_csr, reset_counts, counts) -> dict:
     for tr in (False, True):
         solver = eng.solver_t if tr else eng.solver
         x, c, took, err = serve(b1[tr], tr, A)
-        agree = rel(x, cold[tr])
-        check(agree <= SERVE_COLD_TOL, f"serving T={tr}: promoted vs cold {agree:.3e}")
+        vs_cold = "not answered cold"
+        if tr in cold:
+            agree = rel(x, cold[tr])
+            check(agree <= SERVE_COLD_TOL, f"serving T={tr}: promoted vs cold {agree:.3e}")
+            vs_cold = f"vs cold {agree:.2e}"
         check_kinds(solver, 1, c)
         print(f"phase 3f: promoted answer transpose={int(tr)}: {took * 1e3:.4f} "
-              f"ms, vs cold {agree:.2e}, vs scipy {err:.2e}; launches "
+              f"ms, {vs_cold}, vs scipy {err:.2e}; launches "
               f"{json.dumps({k: v for k, v in c.items() if v})}")
         for m, reps in ((SERVE_BATCH, 3 if not tr else 2), (1, 5)):
             ts = []
@@ -1586,20 +1645,7 @@ def serving_tier(torch, dev, L, scipy_csr, reset_counts, counts) -> dict:
         print(f"phase 3f: profile a forward step of width {m}: "
               f"{device_busy(torch, lambda: step_only(B, False))}")
     new = refresh_values(L, seed=11)
-    t0 = time.perf_counter()
-    svc.refresh("lung2", new)
-    torch.cuda.synchronize()
-    t_refresh = time.perf_counter() - t0
     A2 = scipy_csr(L, new)
-    print(f"phase 3f: refresh of the promoted pair {t_refresh:.3f} s, beside "
-          f"the cold admission {t_admit:.3f} s and the planned build "
-          f"{entry.planned_build_seconds:.3f} s")
-    for tr in (False, True):
-        for m in (1, SERVE_BATCH):
-            _, c, took, err = serve(rng.standard_normal((L.n, m)), tr, A2)
-            check_kinds(eng.solver_t if tr else eng.solver, m, c)
-            print(f"phase 3f: refreshed m={m:2d} transpose={int(tr)}: "
-                  f"{took * 1e3:.4f} ms, vs scipy {err:.2e}")
     st = svc.stats()
     print(f"phase 3f: service stats: completed {st['completed']}, failed "
           f"{st['failed']}, batches {st['batches_completed']}, solve latency "
@@ -1638,10 +1684,10 @@ def serving_tier(torch, dev, L, scipy_csr, reset_counts, counts) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- (b) serve_bench at its full size -----------------------------------
+    # -- (b) serve_bench at its smoke size ----------------------------------
     t0 = time.perf_counter()
     res, c = counted(lambda: serve_bench.run(
-        device=dev, json_path=str(out_dir / "BENCH_serve_cuda.json")))
+        smoke=True, device=dev, json_path=str(out_dir / "BENCH_serve_cuda.json")))
     mixed = res["mixed"]
     reqs = mixed["requests"]
     check(mixed["completed"] == mixed["solves"] == len(reqs) > 0
@@ -1660,8 +1706,8 @@ def serving_tier(torch, dev, L, scipy_csr, reset_counts, counts) -> dict:
     for r, F in reqs[::max(1, len(reqs) // SERVE_SAMPLE)][:SERVE_SAMPLE]:
         worst = max(worst, rel(r.x, oracle(scipy_csr(F), r.b, r.transpose)))
     check(worst <= SERVE_MIXED_TOL, f"serve_bench: answers vs scipy {worst:.3e}")
-    print(f"phase 3f: serve_bench (lung2_like(0.3) n={res['rows']}, 4 patterns, "
-          f"8 tenants, 600 events, n=512) in {time.perf_counter() - t0:.1f} s: "
+    print(f"phase 3f: serve_bench --smoke (n={res['rows']}, 120 events of "
+          f"n=192) in {time.perf_counter() - t0:.1f} s: "
           f"warm {json.dumps(res['warm'])}; cold {json.dumps(cold_ok)}; mixed "
           f"{json.dumps({k: v for k, v in mixed.items() if k != 'requests'})}; "
           f"{SERVE_SAMPLE} answers vs scipy <= {worst:.2e}; launches "
@@ -1703,17 +1749,15 @@ def scatter_phase(torch, dev, rng, L, band, solvers, rw_solvers, scipy_csr,
     ``blocked`` on the band against scipy (one panel SpMV and one block
     apply launch per super-level); a scatter ``refresh`` (a cold rebuild)
     against a fresh build; scatter beside permuted ms per solve.  (b) the
-    eight CI benches at ``--smoke`` (``--dry-run``) with their gates, and
-    the calibration row of phase 3e as ``BENCH_calibrate_cuda.json``.
+    CI benches of CARD_BENCHES at ``--smoke`` (``--dry-run``) with their
+    gates, and the calibration row of phase 3e as ``BENCH_calibrate_cuda.json``.
     Returns the launches of (a) and (b), the times, the gates and the
     scatter solvers phase 4 counts launches of."""
     import gc
+    import importlib
 
     from scipy.sparse.linalg import spsolve_triangular
 
-    from repro_torch.bench import (batch_solve, blocked, coarsen, guard,
-                                   preconditioner, refresh, rewrite_planner,
-                                   sweep)
     from repro_torch.bench.calibrate import write_bench
     from repro_torch.bench.common import print_gates
     from repro_torch.core import CSRMatrix, RewriteConfig, SpTRSV
@@ -1854,18 +1898,12 @@ def scatter_phase(torch, dev, rng, L, band, solvers, rw_solvers, scipy_csr,
     print(f"phase 3g: scatter path in {time.perf_counter() - t0:.1f} s; "
           f"launches {json.dumps(scatter_launches)}")
 
-    # (b) the eight CI benches at their smoke sizes
+    # (b) the CI benches of CARD_BENCHES at their smoke sizes
     reset_counts()
     t0 = time.perf_counter()
     gates = {}
-    for name, mod, kw in (("refresh", refresh, dict(smoke=True)),
-                          ("batch_solve", batch_solve, dict(dry_run=True)),
-                          ("coarsen", coarsen, dict(smoke=True)),
-                          ("blocked", blocked, dict(smoke=True)),
-                          ("sweep", sweep, dict(smoke=True)),
-                          ("guard", guard, dict(smoke=True)),
-                          ("preconditioner", preconditioner, dict(dry_run=True)),
-                          ("rewrite_planner", rewrite_planner, dict(smoke=True))):
+    for name, kw in CARD_BENCHES.items():
+        mod = importlib.import_module(f"repro_torch.bench.{name}")
         t1 = time.perf_counter()
         results = mod.measure(device=dev, **kw)
         gs = mod.gates(results)
@@ -2118,7 +2156,236 @@ def distributed_phase(torch, dev, rng, L, scipy_csr, reset_counts,
             "times": times}
 
 
+def train_flops(cfg, B: int, S: int) -> float:
+    """Model FLOPs of one training step (forward and backward, 3x the
+    forward; the recompute not counted): every matmul's weights, the
+    unembedding included, 2 FLOPs per token, and the attention's two
+    products over each layer's live (query, key) pairs."""
+    D, F, hd, Hq, Hkv = cfg.d_model, cfg.d_ff, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    per_layer = D * Hq * hd * 2 + 2 * D * Hkv * hd + 3 * D * F
+    fwd = 2 * B * S * (per_layer * cfg.num_layers + D * cfg.vocab_pad)
+    for kind in cfg.kinds():
+        w = cfg.window if kind == "attn_local" else S
+        live = sum(min(i + 1, w) for i in range(S))
+        fwd += 4 * B * hd * Hq * live
+    return 3.0 * fwd
+
+
+def training_phase(torch, dev, rng, reset_counts, counts, flash_cuda,
+                   gqa_attention_ref) -> dict:
+    """Phase 3l (TRAIN_* / TRIPRE_* constants): (a) the training launcher on
+    gemma3-1b at full width, a finite loss that falls from the first step
+    to the last, no recovery, the flash kernel twice per attention layer
+    and step (forward and recompute), then the serving launcher on the
+    checkpoint; (b) the card's loss and gradients against the CPU's, and
+    the flash Function's gradients against the plain version's; (c) tripre
+    through the launcher, the rewritten solves on the SpMV kernel, and one
+    leaf's update against dense f64 triangular solves.  Returns the
+    launches of (a) and (c) and the per-step figures."""
+    import dataclasses
+    import importlib
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn.ops import flash_attention_kernel
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.model import Model
+    from repro_torch.train.steps import loss_and_grads
+    from repro_torch.tree import leaves_with_path, map_tree
+
+    tripre_mod = importlib.import_module("repro_torch.optim.tripre")
+    cfg = get_config(TRAIN_ARCH)
+    attn = sum(kind.startswith("attn") for kind in cfg.kinds())
+    total = {}
+
+    # -- (a) the launcher at full width --------------------------------------
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--seq",
+                str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH), "--optimizer", "adamw",
+                "--ckpt-dir", ckdir, "--resume", "none", "--max-recoveries", "0"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()     # the earlier phases' tensors
+        reset_counts()
+        t0 = time.perf_counter()
+        out = launch_train.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = counts()
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+        hist = out["history"]
+        check(out["final_step"] == TRAIN_STEPS and len(hist) == TRAIN_STEPS,
+              f"train: ended at step {out['final_step']} with {len(hist)} losses")
+        check(out["recoveries"] == 0, f"train: {out['recoveries']} recoveries")
+        check(bool(np.isfinite(hist).all()) and hist[-1] < hist[0],
+              f"train: losses {hist}")
+        flash_per_step = c["flash_attn"] / TRAIN_STEPS
+        check(c["flash_attn"] == TRAIN_STEPS * 2 * attn,
+              f"train: flash_attn launched {c['flash_attn']} times, expected "
+              f"{TRAIN_STEPS} steps x 2 x {attn} attention layers")
+        step_s = float(np.median(out["step_seconds"][1:]))
+        flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+        peak = torch.cuda.max_memory_allocated() - held
+        print(f"phase 3l: train {TRAIN_ARCH} ({cfg.num_layers} layers, f32 masters, bf16 compute, remat) adamw, {TRAIN_STEPS} steps "
+              f"of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in {wall:.1f} s: losses "
+              f"{[round(x, 4) for x in hist]}; ms per step (median of steps "
+              f"2-{TRAIN_STEPS}) {step_s * 1e3:.4f} (each "
+              f"{[round(x * 1e3, 1) for x in out['step_seconds']]}), "
+              f"{TRAIN_BATCH * TRAIN_SEQ / step_s:.1f} tokens/s, model "
+              f"{flops / 1e12:.3f} TFLOP per step, {flops / step_s / 1e12:.1f} "
+              f"TFLOP/s = {100 * flops / step_s / BF16_TENSOR_FLOPS:.2f}% of the bf16 "
+              f"tensor peak; peak memory {peak / 1e9:.3f} GB above the "
+              f"{held / 1e9:.3f} GB the earlier phases hold; the final save "
+              f"{out['save_seconds']:.3f} s for {out['save_bytes'] / 1e9:.3f} GB "
+              f"({out['save_bytes'] / 1e9 / out['save_seconds']:.3f} GB/s); "
+              f"launches {json.dumps({k: v for k, v in c.items() if v})}")
+        lm_launcher(torch, cfg, reset_counts, counts,
+                    ["--arch", TRAIN_ARCH, "--ckpt", ckdir], "3l")
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    del out
+    torch.cuda.empty_cache()
+
+    # -- (b) the card against the CPU ----------------------------------------
+    t0 = time.perf_counter()
+    short = dataclasses.replace(cfg, num_layers=TRAIN_CHECK_LAYERS)
+    card_model = Model(short, device=dev)
+    params = card_model.init(torch.Generator(device=dev).manual_seed(1), masters=True)
+    toks = rng.integers(0, short.vocab_size, (TRAIN_CHECK_B, TRAIN_CHECK_S)).astype(np.int32)
+    batch = {"tokens": toks, "labels": np.concatenate(
+        [toks[:, 1:], np.full((TRAIN_CHECK_B, 1), -1, np.int32)], 1)}
+    before = flash_cuda.launches["flash_attn"]
+    runs = {"card": loss_and_grads(card_model, params, batch)}
+    torch.cuda.synchronize()
+    check(flash_cuda.launches["flash_attn"] - before
+          == 2 * sum(k.startswith("attn") for k in short.kinds()),
+          "train check: the card's gradient did not run the flash kernel")
+    host = map_tree(lambda t: t.cpu(), params)
+    runs["cpu bf16"] = loss_and_grads(Model(short, device="cpu"), host, batch)
+    runs["cpu f32"] = loss_and_grads(
+        Model(dataclasses.replace(short, dtype="float32"), device="cpu"), host, batch)
+
+    def compare(a, b):
+        (ga, ma), (gb, mb) = runs[a], runs[b]
+        loss = abs(float(ma["loss"]) - float(mb["loss"])) / abs(float(mb["loss"]))
+        errs = {k: rel_err(x.float().cpu(), y.float())
+                for (k, x), (_, y) in zip(leaves_with_path(ga), leaves_with_path(gb))}
+        return loss, errs
+
+    report = {}
+    for ref, gtol in (("cpu f32", TRAIN_GRAD_TOL), ("cpu bf16", None)):
+        loss, errs = compare("card", ref)
+        leaf = max(errs, key=errs.get)
+        report[ref] = (loss, errs[leaf], leaf)
+        check(np.isfinite(list(errs.values())).all(), f"train check: non-finite vs {ref}")
+        check(loss <= TRAIN_LOSS_TOL, f"train check: loss vs {ref} rel {loss:.3e}")
+        if gtol is not None:
+            check(errs[leaf] <= gtol, f"train check: {leaf} gradient vs {ref} "
+                  f"rel {errs[leaf]:.3e}")
+    cpu_gap = compare("cpu bf16", "cpu f32")
+    print(f"phase 3l: {TRAIN_ARCH} first {TRAIN_CHECK_LAYERS} layers at full width, "
+          f"B={TRAIN_CHECK_B} S={TRAIN_CHECK_S}, loss card {float(runs['card'][1]['loss']):.6f}, "
+          f"CPU bf16 {float(runs['cpu bf16'][1]['loss']):.6f}, CPU f32 "
+          f"{float(runs['cpu f32'][1]['loss']):.6f}: card vs CPU f32 loss rel "
+          f"{report['cpu f32'][0]:.3e} (tol {TRAIN_LOSS_TOL:g}), worst leaf gradient "
+          f"{report['cpu f32'][2]} {report['cpu f32'][1]:.3e} (tol {TRAIN_GRAD_TOL:g}); "
+          f"card vs CPU bf16 loss {report['cpu bf16'][0]:.3e}, worst "
+          f"{report['cpu bf16'][2]} {report['cpu bf16'][1]:.3e}; CPU bf16 vs CPU f32 "
+          f"loss {cpu_gap[0]:.3e}, worst {max(cpu_gap[1].values()):.3e}; in "
+          f"{time.perf_counter() - t0:.1f} s")
+    del runs, params, host, card_model
+    torch.cuda.empty_cache()
+    for what, ((B, S, Hq, Hkv, hd, window, cap), prefix) in FLASH_GRAD_CASES.items():
+        q, k, v = (torch.from_numpy(rng.standard_normal((B, S, H, hd), dtype=np.float32))
+                   .to(dev, torch.bfloat16).requires_grad_(True) for H in (Hq, Hkv, Hkv))
+        w = torch.from_numpy(rng.standard_normal((B, S, Hq, hd), dtype=np.float32)).to(dev)
+        kw = dict(causal=True, window=window, softcap=cap, prefix_len=prefix)
+        before = flash_cuda.launches["flash_attn"]
+        got = torch.autograd.grad((flash_attention_kernel(q, k, v, **kw).float() * w).sum(),
+                                  (q, k, v))
+        check(flash_cuda.launches["flash_attn"] - before == 1,
+              f"flash gradient {what}: the forward did not launch the kernel once")
+        want = torch.autograd.grad((gqa_attention_ref(q, k, v, **kw).float() * w).sum(),
+                                   (q, k, v))
+        errs = [rel_err(a.float(), b.float()) for a, b in zip(got, want)]
+        check(max(errs) <= FLASH_TOL["bfloat16"],
+              f"flash gradient {what}: q, k, v rel err {errs}")
+        print(f"phase 3l: flash Function gradient {what} B={B} S={S} Hq={Hq} Hkv={Hkv} "
+              f"hd={hd} softcap={cap:g} prefix_len={prefix}: q, k, v against autograd "
+              f"through the plain version rel err {', '.join(f'{e:.3e}' for e in errs)} "
+              f"(tol {FLASH_TOL['bfloat16']:g})")
+        del q, k, v, w, got, want
+
+    # -- (c) tripre through the launcher -------------------------------------
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_tripre_")
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        out = launch_train.main(
+            ["--arch", TRAIN_ARCH, "--layers", str(TRIPRE_LAYERS), "--steps",
+             str(TRIPRE_STEPS), "--seq", str(TRIPRE_SEQ), "--batch", str(TRIPRE_BATCH),
+             "--optimizer", "tripre", "--ckpt-dir", ckdir, "--resume", "none",
+             "--max-recoveries", "0"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = counts()
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    for k, v in c.items():
+        total[k] = total.get(k, 0) + v
+    hist, stats = out["history"], out["optimizer"].stats
+    check(out["final_step"] == TRIPRE_STEPS and out["recoveries"] == 0
+          and bool(np.isfinite(hist).all()), f"tripre: {out['final_step']} steps, "
+          f"{out['recoveries']} recoveries, losses {hist}")
+    spmv_per_step = {k: c[k] / TRIPRE_STEPS for k in ("spmv_ell", "spmv_ell_batched")}
+    check(c["spmv_ell_batched"] > 0, "tripre: the rewritten solves never launched the SpMV")
+    factors = stats["factors"]
+    print(f"phase 3l: tripre {TRAIN_ARCH} ({TRIPRE_LAYERS} layers at full width) "
+          f"{TRIPRE_STEPS} steps of {TRIPRE_BATCH} x {TRIPRE_SEQ} in {wall:.1f} s: losses "
+          f"{[round(x, 4) for x in hist]}; {len(factors)} factors (n, levels before -> "
+          f"after the rewrite, forward / transpose, shift): "
+          + "; ".join(f"{k} {f['n']} {f['levels_before']}->{f['levels_after']} / "
+                      f"{f['transpose']['levels_before']}->{f['transpose']['levels_after']}"
+                      f" {f['shift']:g}" for k, f in factors.items())
+          + f"; refresh {[round(x, 3) for x in stats['refresh_s']]} s, ms per step "
+          f"{[round(x * 1e3, 1) for x in out['step_seconds']]}; SpMV launches per step "
+          f"{json.dumps(spmv_per_step)}; launches {json.dumps({k: v for k, v in c.items() if v})}")
+    del out
+
+    # one leaf's update against dense f64 solves
+    D, Fd = cfg.d_model, cfg.d_ff
+    p = torch.zeros((D, Fd), device=dev)        # the update alone, unrounded by p
+    g = torch.from_numpy(rng.standard_normal((D, Fd), dtype=np.float32)).to(dev)
+    opt = tripre_mod.tripre(lr=1e-2, band=8)
+    before = counts()["spmv_ell_batched"]
+    new, st = opt.update({"w": g}, opt.init({"w": p}), {"w": p})
+    torch.cuda.synchronize()
+    m = (1 - 0.9) * g
+    G = 0.95 * torch.zeros((D, D), device=dev) + (1 - 0.95) * (g @ g.T) / Fd
+    L = torch.from_numpy(tripre_mod.factor(G.cpu().numpy(), 8)[0]).to(dev)
+    y = torch.linalg.solve_triangular(L, m.double(), upper=False)
+    z = torch.linalg.solve_triangular(L.T, y, upper=True)
+    z = z * (torch.linalg.vector_norm(m.double()) / torch.linalg.vector_norm(z))
+    err = rel_err((new["w"] - p).double(), -1e-2 * z)
+    check(counts()["spmv_ell_batched"] > before, "tripre check: no SpMV launch")
+    check(err <= TRIPRE_TOL, f"tripre update vs dense f64 solves: rel err {err:.3e}")
+    print(f"phase 3l: tripre update of a ({D}, {Fd}) leaf against dense f64 "
+          f"solve_triangular on the card: rel err {err:.3e} (tol {TRIPRE_TOL:g}); "
+          f"factor levels {json.dumps(opt.stats['factors'])}")
+    return {"launches": total, "flash_per_step": flash_per_step,
+            "spmv_per_step": spmv_per_step}
+
+
 def main() -> int:
+    # phase 3l's training peak (~38 GB) comes on top of the ~27 GB the
+    # solvers of phases 3-4 hold; with fixed-size segments the allocator
+    # ran out there with 18.9 GB reserved but free in fragments, and
+    # expandable segments reuse them
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    import gc
+
     import torch
 
     if not torch.cuda.is_available():
@@ -2779,7 +3046,7 @@ def main() -> int:
         check(tier["experiments"].get(name, 0) > 0,
               f"{name} never launched by the experiments")
 
-    # 3g: the scatter layout and the eight CI benches
+    # 3g: the scatter layout and the CI benches of CARD_BENCHES
     t0 = time.perf_counter()
     sc = scatter_phase(torch, dev, rng, L64, band64, solvers, rw_solvers,
                        scipy_csr, reset_counts, counts, (row, raw))
@@ -2852,6 +3119,17 @@ def main() -> int:
                     ["--arch", arch, *serve["launcher"]], "3k")
     print(f"phase 3k: whisper and paligemma in {time.perf_counter() - t0:.1f} s; "
           f"launches {json.dumps(path_launches['slice4'])}")
+    # 3l: the training path: gemma3-1b through the training launcher, its
+    # checkpoint served, the card's gradients against the CPU's, and tripre
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    training = training_phase(torch, dev, rng, reset_counts, counts, flash_cuda,
+                              gqa_attention_ref)
+    path_launches["training"] = training["launches"]
+    torch.cuda.empty_cache()
+    print(f"phase 3l: the training path in {time.perf_counter() - t0:.1f} s; "
+          f"launches {json.dumps(path_launches['training'])}")
     main_launches = {name: sum(p[name] for p in path_launches.values())
                      for name in KERNELS}
     print(f"phase 3: the paths in {time.perf_counter() - t_phase:.1f} s")
@@ -3148,11 +3426,13 @@ def main() -> int:
             extra)
         print(f"phase 4: spmv over all K slots (no row lengths) m={m:2d}: "
               f"{fmt_ms(time_ms(torch, lambda: spmv_cuda.spmv(bv, ecols, evals)))}")
-        row("spmv_ell" if m == 1 else "spmv_ell_batched",
+        spmv_name = "spmv_ell" if m == 1 else "spmv_ell_batched"
+        row(spmv_name,
             time_ms(torch, lambda: spmv_cuda.spmv(bv, ecols, evals, elen)),
             time_ms(torch, lambda: spmv_ref(bv, ecols64, evals)),
             spmv_bound_ms(E, m, dt),
-            library("torch.sparse.mm on a CSR E", lambda: torch.sparse.mm(E_csr, b)))
+            library("torch.sparse.mm on a CSR E", lambda: torch.sparse.mm(E_csr, b)),
+            {"tripre_launches_per_step": training["spmv_per_step"][spmv_name]})
         rhs = [torch.from_numpy(rng.standard_normal(
             (B_, T_) if m == 1 else (B_, T_, m))).to(dev) for B_, T_ in shapes]
 
@@ -3240,6 +3520,7 @@ def main() -> int:
         "replaces": KERNELS["flash_attn"][1],
         "launches": main_launches["flash_attn"],
         "launches_per_solve": per_solve["flash_attn"],
+        "launches_per_train_step": training["flash_per_step"],
         "max_abs_err": kernel_err["flash_attn", "bfloat16"], "ms": fl["ms"][0],
         "ms_min_max": list(fl["ms"][1:]), "plain_ms": fl["plain"][0],
         "bound_ms": fl["bound"][0], "bound_by": fl["bound"][1],

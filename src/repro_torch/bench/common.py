@@ -98,7 +98,9 @@ def timeit(fn, *args, iters: int = 10, warmup: int = 3) -> float:
     (the device of the first tensor argument) each call is timed between
     CUDA events (host launch gaps included, as a caller waits) and
     synchronised; otherwise with the host clock.  A call that takes at
-    least :data:`LONG_CALL_S` is timed once, after one warm-up."""
+    least :data:`LONG_CALL_S` is timed once, after one warm-up; with
+    ``warmup=0`` the first call is timed (for a call with nothing to
+    compile or load)."""
     dev = next((a.device for a in args if torch.is_tensor(a)),
                torch.device("cpu"))
     if dev.type == "cuda":
@@ -117,9 +119,10 @@ def timeit(fn, *args, iters: int = 10, warmup: int = 3) -> float:
             fn(*args)
             return time.perf_counter() - t0
 
-    fn(*args)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    if warmup:
+        fn(*args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     first = once()
     if first >= LONG_CALL_S:
         return first

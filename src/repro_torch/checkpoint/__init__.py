@@ -1,0 +1,3 @@
+from .manager import CheckpointManager, save_pytree, restore_pytree
+
+__all__ = ["CheckpointManager", "save_pytree", "restore_pytree"]

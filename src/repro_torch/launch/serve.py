@@ -3,14 +3,16 @@ request stream, reporting throughput.
 
     PYTHONPATH=src python -m repro_torch.launch.serve [--arch gemma3-1b]
         [--smoke] [--slots 4] [--requests 16] [--max-new 16] [--cache 128]
-        [--device cuda|cpu]
+        [--ckpt DIR] [--device cuda|cpu]
 
 The flags are those of the JAX package's launcher, plus ``--device``.  The
 default arch is ``gemma3-1b``, as the JAX launcher's; every other arch
 runs too (the MoE archs' full configs do not fit one card: run them with
-``--smoke``).  ``--ckpt`` raises ``NotImplementedError`` until checkpoints
-are ported.  Parameters are random, drawn from seed 0 on the chosen
-device.  Whisper-medium and paligemma-3b requests carry their modality
+``--smoke``).  Parameters are random, drawn from seed 0 on the chosen
+device, or with ``--ckpt DIR`` the latest step of a checkpoint directory
+that the training launcher wrote (``repro_torch.launch.train --ckpt-dir
+DIR``, the same arch and ``--smoke``): its ``params``, cast to the serving
+model's dtypes.  Whisper-medium and paligemma-3b requests carry their modality
 stub, drawn with numpy from the same seed (standard normal, f32, as the
 JAX package's ``SyntheticLM`` draws its ``extras``): whisper ``enc_embed``
 of ENC_FRAMES frames (30 s of audio at whisper's 50 frames a second after
@@ -22,6 +24,7 @@ a ``--cache`` longer than ``prefix_len`` to keep the prompt's keys.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 ENC_FRAMES, SMOKE_ENC_FRAMES = 1500, 32
@@ -46,14 +49,20 @@ def main(argv=None):
     from repro_torch.models.model import Model
     from repro_torch.serve.engine import Request, ServeEngine
 
-    if args.ckpt:
-        raise NotImplementedError("--ckpt: checkpoints are not ported yet "
-                                  "(ROADMAP A12)")
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = Model(cfg, device=args.device)
     params = model.init(torch.Generator(device=model.device).manual_seed(0))
+    source = "random weights"
+    if args.ckpt:
+        from repro_torch.checkpoint import CheckpointManager
+        if not os.path.isdir(args.ckpt):
+            raise FileNotFoundError(f"--ckpt {args.ckpt}: no such directory")
+        tree, manifest = CheckpointManager(args.ckpt).restore({"params": params})
+        params = tree["params"]
+        source = f"{args.ckpt} step {manifest['step']}"
     print(f"[serve] {cfg.name}{' (smoke)' if args.smoke else ''} on "
-          f"{model.device.type}: {cfg.num_layers} layers {cfg.block_pattern}")
+          f"{model.device.type}: {cfg.num_layers} layers {cfg.block_pattern}, "
+          f"{source}")
     eng = ServeEngine(model, params, batch_slots=args.slots, s_cache=args.cache)
     rng = np.random.default_rng(0)
     stub_rows = {"enc_embed": SMOKE_ENC_FRAMES if args.smoke else ENC_FRAMES,

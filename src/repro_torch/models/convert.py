@@ -11,7 +11,15 @@ whisper's decoder blocks with their ``xattn``), whisper's encoder blocks
 as ``{"layers": [...], "ln"}``, paligemma's ``patch_proj`` and the
 embedding's untied ``out`` table where there are, weights in the compute
 dtype and the ``F32_LEAVES`` in f32, on ``device`` (the card unless the
-caller asks for ``"cpu"``, as every entry point of the port).
+caller asks for ``"cpu"``, as every entry point of the port).  With
+``masters=True`` every leaf stays f32, as the JAX package's master weights;
+a JAX gradient tree, which has the parameters' structure, is carried
+across the same way.
+
+:func:`jax_ndims` gives each leaf of a port tree the rank its leaf has in
+the JAX layout: one more for a leaf of a scanned layer (the stacked
+``reps`` axis, and the encoder's stacked blocks), which decides what the
+JAX train step casts to the compute dtype (``p.ndim >= 2``).
 """
 from __future__ import annotations
 
@@ -22,7 +30,7 @@ from ..kernels.backend import resolve_device
 from .config import ModelConfig
 from .model import DTYPES, check_supported
 
-__all__ = ["from_jax"]
+__all__ = ["from_jax", "jax_ndims", "scanned_layers"]
 
 # leaves the JAX package uses in f32 whatever the compute dtype: norm
 # scales, the RG-LRU's lam and the sLSTM's recurrent matrices
@@ -43,14 +51,14 @@ def _tensors(tree, dtype: torch.dtype, device, *, rep=None):
     return out
 
 
-def from_jax(params: dict, cfg: ModelConfig, *, device="cuda") -> dict:
+def from_jax(params: dict, cfg: ModelConfig, *, device="cuda",
+             masters: bool = False) -> dict:
     check_supported(cfg)
     device = resolve_device(device)
-    dtype = DTYPES[cfg.dtype]
-    pattern = cfg.block_pattern
-    reps = cfg.num_layers // len(pattern)
-    layers = [_tensors(params["blocks"][f"p{pos}"], dtype, device, rep=r)
-              for r in range(reps) for pos in range(len(pattern))]
+    dtype = torch.float32 if masters else DTYPES[cfg.dtype]
+    P = len(cfg.block_pattern)
+    layers = [_tensors(params["blocks"][f"p{i % P}"], dtype, device, rep=i // P)
+              for i in range(scanned_layers(cfg))]
     layers += [_tensors(block, dtype, device) for block in params["tail"]]
     if len(layers) != cfg.num_layers:
         raise ValueError(f"{len(layers)} layers in the pytree, config has "
@@ -69,4 +77,28 @@ def from_jax(params: dict, cfg: ModelConfig, *, device="cuda") -> dict:
                           "ln": _tensors(enc["ln"], dtype, device)}
     if "patch_proj" in params:
         out["patch_proj"] = _tensors(params["patch_proj"], dtype, device)
+    return out
+
+
+def scanned_layers(cfg: ModelConfig) -> int:
+    """How many of the decoder's layers (the first ones) the JAX package
+    stacks and scans: its whole pattern repetitions."""
+    return cfg.num_layers // len(cfg.block_pattern) * len(cfg.block_pattern)
+
+
+def jax_ndims(params: dict, cfg: ModelConfig) -> dict:
+    """``params``' structure with each leaf's rank in the JAX layout: the
+    port's rank, plus one in a scanned decoder layer and in every encoder
+    layer."""
+    def ranks(tree, extra):
+        if isinstance(tree, dict):
+            return {k: ranks(v, extra) for k, v in tree.items()}
+        return tree.dim() + extra
+
+    n_scan = scanned_layers(cfg)
+    out = {k: ranks(v, 0) for k, v in params.items() if k not in ("layers", "encoder")}
+    out["layers"] = [ranks(lp, int(i < n_scan)) for i, lp in enumerate(params["layers"])]
+    if "encoder" in params:
+        out["encoder"] = {"layers": [ranks(lp, 1) for lp in params["encoder"]["layers"]],
+                          "ln": ranks(params["encoder"]["ln"], 0)}
     return out

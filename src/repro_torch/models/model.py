@@ -36,6 +36,14 @@ and returns it.
 expert-parallel path (each rank its batch shard, its MoE layers' slices of
 :func:`.moe.shard_moe_params`); decode always runs them locally, as in the
 JAX package.
+
+``forward(params, batch)`` is the training forward, ``(logits, aux)`` over
+the whole sequence, differentiable by autograd (the flash kernel through
+:class:`repro_torch.kernels.flash_attn.ops.FlashAttention`); with
+``remat`` (the default, as the JAX package's) each layer runs under
+``torch.utils.checkpoint``, so its activations are recomputed in the
+backward pass, as ``jax.checkpoint`` does.  ``init(..., masters=True)``
+draws every leaf in f32, the JAX package's master weights.
 """
 from __future__ import annotations
 
@@ -43,6 +51,7 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.backend import resolve_device
 from .config import ModelConfig
@@ -115,9 +124,10 @@ class Model:
     input that ``prefill`` needs (``"enc_embed"``, ``"patches"`` or
     None)."""
 
-    def __init__(self, cfg: ModelConfig, *, device="cuda"):
+    def __init__(self, cfg: ModelConfig, *, remat: bool = True, device="cuda"):
         check_supported(cfg)
         self.cfg = cfg
+        self.remat = remat
         self.kinds = cfg.kinds()
         self.use_rope = cfg.family != "audio"
         self.cross = cfg.family == "audio"          # whisper's decoder blocks
@@ -128,15 +138,17 @@ class Model:
         self.kv_dtype = KV_DTYPES[cfg.kv_cache_dtype]
 
     # ---- init -------------------------------------------------------------
-    def init(self, generator: Optional[torch.Generator] = None) -> dict:
+    def init(self, generator: Optional[torch.Generator] = None, *,
+             masters: bool = False) -> dict:
         """Random parameters drawn from ``generator`` (on its own device;
         a generator on the card draws there) and written in the compute
         dtype to the model's device; norm scales, ``lam`` and the sLSTM's
-        recurrent matrices f32."""
+        recurrent matrices f32.  With ``masters`` every leaf is f32, as the
+        JAX package's master weights (the trainer's)."""
         cfg = self.cfg
         if generator is None and self.device.type != "meta":
             raise ValueError("init needs a torch.Generator")
-        init = Init(generator, self.dtype, self.device)
+        init = Init(generator, torch.float32 if masters else self.dtype, self.device)
 
         def block(kind):
             p = {"mix": MIXERS[kind](init, cfg)}
@@ -162,6 +174,54 @@ class Model:
             # the frontend stub: a projection of precomputed patch embeddings
             params["patch_proj"] = init_dense(init, cfg.d_model, cfg.d_model)
         return params
+
+    # ---- training forward ---------------------------------------------------
+    def forward(self, params: dict, batch: dict, *,
+                dist: Optional[DistContext] = None):
+        """The JAX ``forward``: ``batch`` ``{"tokens": (B, S)[, "enc_embed":
+        (B, Se, D) | "patches": (B, prefix_len, D)]}`` (tensors or numpy
+        arrays; other keys, such as ``labels``, are ignored) → ``(logits
+        (B, S, V_pad), aux)``, ``aux`` the sum of the MoE layers' auxiliary
+        losses (0 without experts).  A vlm's logits are those of the text
+        positions only.  With ``remat`` each layer is recomputed in the
+        backward pass."""
+        cfg = self.cfg
+        tokens = torch.as_tensor(batch["tokens"]).to(self.device)
+        stubs = {name: torch.as_tensor(batch[name])
+                 if name == self.stub and name in batch else None
+                 for name in ("enc_embed", "patches")}
+        self._check_stub(tokens.shape[0], **stubs)
+        x, positions, enc_out = self._embed_inputs(params, tokens, **stubs)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        for kind, lp in zip(self.kinds, params["layers"]):
+            if self.remat:
+                x, a = checkpoint(self._layer, kind, lp, x, positions, enc_out,
+                                  dist, use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                x, a = self._layer(kind, lp, x, positions, enc_out, dist)
+            aux = aux + a
+        x = rms_norm(params["final_ln"], x)
+        if cfg.family == "vlm":
+            x = x[:, cfg.prefix_len:]       # the loss is on the text positions
+        return unembed_apply(params["embed"], cfg, x), aux
+
+    def _layer(self, kind: str, lp: dict, x: torch.Tensor, positions, enc_out,
+               dist: Optional[DistContext]):
+        """One decoder layer of the forward, without a cache: ``(x, aux)``."""
+        cfg = self.cfg
+        if kind in RECURRENT:
+            x = RECURRENT[kind][0](lp["mix"], cfg, x)
+        else:
+            mk, plen = _mask_kind(cfg, kind)
+            x = attention_apply(lp["mix"], cfg, x, positions, kind=mk,
+                                rope=self.use_rope, prefix_len=plen)
+            if "xattn" in lp:
+                x = attention_apply(lp["xattn"], cfg, x, positions, kind="full",
+                                    kv_src=enc_out, rope=False)
+        if "ffn" in lp:
+            return self._ffn(lp["ffn"], x, dist)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
     # ---- serving ------------------------------------------------------------
     def init_cache(self, B: int, s_cache: int) -> dict:
@@ -293,7 +353,7 @@ class Model:
                     x = attention_apply(lp["xattn"], cfg, x, positions, kind="full",
                                         kv_src=enc_out, rope=False)
             if "ffn" in lp:
-                x = self._ffn(lp["ffn"], x, dist)
+                x = self._ffn(lp["ffn"], x, dist)[0]
         x = rms_norm(params["final_ln"], x)
         cache["idx"] = S
         return unembed_apply(params["embed"], cfg, x[:, -1:]), cache
@@ -322,20 +382,22 @@ class Model:
                     x, _ = attention_decode(lp["xattn"], cfg, x, {}, idx,
                                             enc_out=enc_out)
             if "ffn" in lp:
-                x = self._ffn(lp["ffn"], x, None)
+                x = self._ffn(lp["ffn"], x, None)[0]
         x = rms_norm(params["final_ln"], x)
         cache["idx"] = idx + 1
         return unembed_apply(params["embed"], cfg, x), cache
 
     def _ffn(self, p: dict, x: torch.Tensor, dist: Optional[DistContext]):
         """An attention or RG-LRU layer's MLP, or an attention layer's
-        experts (expert parallel on ``dist``'s mesh, locally without one)."""
+        experts (expert parallel on ``dist``'s mesh, locally without one):
+        ``(x, aux)``, ``aux`` the experts' auxiliary loss (0 for an MLP)."""
         if "router" not in p:
-            return mlp_apply(p, x)
+            return mlp_apply(p, x), torch.zeros((), dtype=torch.float32,
+                                                device=x.device)
         if dist is None:
-            return moe_apply(p, self.cfg, x)[0]
+            return moe_apply(p, self.cfg, x)
         return moe_apply(p, self.cfg, x, mesh=dist.mesh, dp_axes=dist.dp_axes,
-                         ep_axis=dist.ep_axis)[0]
+                         ep_axis=dist.ep_axis)
 
 
 def _fill_state(slot: dict, kind: str, state) -> None:

@@ -308,9 +308,11 @@ def init_slstm_block(init: Init, cfg: ModelConfig) -> dict:
 
 
 def _slstm_recurrent(params: dict) -> torch.Tensor:
-    """``rz``, ``ri``, ``rf``, ``ro`` side by side ``(H, dh, 4 dh)``: one
-    product a step for the four gates' recurrent terms."""
-    return torch.cat([params[n] for n in ("rz", "ri", "rf", "ro")], dim=-1)
+    """``rz``, ``ri``, ``rf``, ``ro`` side by side ``(H, dh, 4 dh)`` f32: one
+    product a step for the four gates' recurrent terms (a train step that
+    casts them to bf16 gets them back in f32, as JAX's promotion of its
+    bf16 x f32 einsum)."""
+    return torch.cat([params[n] for n in ("rz", "ri", "rf", "ro")], dim=-1).float()
 
 
 def slstm_cell(R: torch.Tensor, pre: torch.Tensor, carry):

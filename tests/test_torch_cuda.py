@@ -1321,3 +1321,48 @@ def test_doubling_recurrence_on_card(card, dtype):
     assert h.is_cuda and h.dtype == dtype
     assert _rel(h.cpu().double(), want) <= (1e-5 if dtype == torch.float32
                                             else 1e-12)
+
+
+def test_flash_function_gradient_on_card(card):
+    """The training path's attention on the card: the forward is the flash
+    kernel, the gradient that of the plain version, recomputed."""
+    from repro_torch.kernels.flash_attn.ops import flash_attention_kernel
+
+    rng = np.random.default_rng(16)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
+        card, torch.bfloat16).requires_grad_(True)
+        for s in ((2, 96, 4, 64), (2, 96, 2, 64), (2, 96, 2, 64)))
+    w = torch.from_numpy(rng.standard_normal((2, 96, 4, 64)).astype(np.float32)).to(card)
+    flash_cuda.reset_launches()
+    o = flash_attention_kernel(q, k, v, causal=True, softcap=30.0, prefix_len=10)
+    assert flash_cuda.launches["flash_attn"] == 1
+    got = torch.autograd.grad((o.float() * w).sum(), (q, k, v))
+    ref = gqa_attention_ref(q, k, v, causal=True, softcap=30.0, prefix_len=10)
+    want = torch.autograd.grad((ref.float() * w).sum(), (q, k, v))
+    assert flash_cuda.launches["flash_attn"] == 1
+    for g, r in zip(got, want):
+        assert _rel(g.float(), r.float()) <= FLASH_TOL[torch.bfloat16]
+
+
+def test_train_step_on_card(card):
+    """One train step of gemma3-1b's smoke model (bf16 compute, f32 masters,
+    recomputed layers) on the card: every attention layer's flash kernel
+    runs twice (forward and recompute), the loss is finite and the update
+    moves every parameter the loss reads."""
+    from repro_torch.optim import get_optimizer
+    from repro_torch.train.steps import make_train_step
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(smoke_config("gemma3-1b"), dtype="bfloat16")
+    model = Model(cfg, device=card)
+    params = model.init(torch.Generator(device=card).manual_seed(0), masters=True)
+    opt = get_optimizer("adamw", lr=1e-3, total_steps=10)
+    toks = np.random.default_rng(17).integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
+    batch = {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
+    flash_cuda.reset_launches()
+    new, state, metrics = make_train_step(model, opt)(params, opt.init(params), batch)
+    torch.cuda.synchronize()
+    assert flash_cuda.launches["flash_attn"] == 2 * cfg.num_layers
+    assert np.isfinite(float(metrics["loss"])) and int(state["step"]) == 1
+    assert all(p.dtype == torch.float32 and p.is_cuda for p in leaves(new))
+    assert all(not torch.equal(a, b) for a, b in zip(leaves(new), leaves(params)))

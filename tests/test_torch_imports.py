@@ -36,7 +36,11 @@ CHECK = (
     "repro_torch.bench.lm_step, repro_torch.models.moe, "
     "repro_torch.configs.llama4_scout_17b_a16e, repro_torch.configs.arctic_480b, "
     "repro_torch.configs.xlstm_350m, repro_torch.configs.whisper_medium, "
-    "repro_torch.configs.paligemma_3b, sys; "
+    "repro_torch.configs.paligemma_3b, repro_torch.tree, repro_torch.optim, "
+    "repro_torch.optim.optimizers, repro_torch.optim.tripre, repro_torch.train, "
+    "repro_torch.train.steps, repro_torch.train.loop, repro_torch.data, "
+    "repro_torch.data.pipeline, repro_torch.checkpoint, "
+    "repro_torch.checkpoint.manager, repro_torch.launch.train, sys; "
     "from repro_torch.serve import (ServeEngine, Request, SolveEngine, "
     "SolveRequest, SolverRegistry, SolverEntry, pattern_key, SolveService, "
     "TenantState, LatencyHistogram); "

@@ -320,18 +320,21 @@ def test_flash_attention_matches_model_flash(kind, window, dtype):
     assert _rel(got, want) <= TOL[dtype]
 
 
-def test_unported_attention_options_raise():
+def test_unported_attention_options_raise(tmp_path):
     """Every attention kind of the JAX package runs; an unknown one raises,
-    and the launcher's ``--ckpt`` still raises until checkpoints are
-    ported."""
+    and the launcher's ``--ckpt`` (ported with the training path) raises
+    where the directory holds no checkpoint."""
     q = torch.zeros((1, 8, 2, 16))
     for kind in ("full", "causal", "prefix", "window"):
         assert pl.flash_attention(q, q, q, kind=kind, window=4,
                                   prefix_len=3).shape == q.shape
     with pytest.raises(ValueError, match="bidirectional"):
         pl.flash_attention(q, q, q, kind="bidirectional")
-    with pytest.raises(NotImplementedError, match="checkpoints"):
-        launch_serve.main(["--smoke", "--device", "cpu", "--ckpt", "somewhere"])
+    with pytest.raises(FileNotFoundError, match="no checkpoint found"):
+        launch_serve.main(["--smoke", "--device", "cpu", "--ckpt", str(tmp_path)])
+    with pytest.raises(FileNotFoundError, match="no such directory"):
+        launch_serve.main(["--smoke", "--device", "cpu", "--ckpt",
+                           str(tmp_path / "missing")])
 
 
 @pytest.mark.parametrize("offset", [0, 37])
