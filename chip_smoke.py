@@ -13,7 +13,10 @@ gemma3-12b (6 of 48) and qwen1.5-32b (2 of 64), then llama4-scout (2 of
 48), arctic (1 of 35) and xlstm-350m (8 of 24), then whisper-medium and
 paligemma-3b at full depth; and the training path: gemma3-1b trained at
 full width and depth through the training launcher, its checkpoint
-served, and tripre's SpTRSV preconditioner on its first 2 layers.
+served, and tripre's SpTRSV preconditioner on its first layer; and
+sharded training on a world of one NCCL rank: ``Trainer(mesh=)`` against
+the Trainer without one, the expert-parallel MoE layer's gradients, the
+int8 error-feedback all-reduce and GPipe.
 
     python3 chip_smoke.py
 
@@ -75,7 +78,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
       weights on the CPU (f32, the plain versions);
    e. the rest of the solver's surface on lung2 (f64): ``serial`` (one
       solve each way, on ``lung2_like(0.3)`` against scipy: phase 3f's
-      ``exp1_codegen`` times it on the full lung2) and
+      cold answer runs it on the full lung2) and
       ``levelset_unroll`` (m in {1, 32}) against ``levelset``; ``auto`` on
       the committed ``"cuda"`` calibration row,
       the rewrite left open and given (its plan, modelled costs and
@@ -88,8 +91,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
       ``poisson2d(332, 332)`` with IC(0) preconditioners (``auto``,
       ``pallas_fused``, ``pallas_level``, 8 sweeps), one RHS and a batch
       of 32: the true residual checked with scipy and the iteration count
-      within 2 of a host PCG (scipy's ``spsolve_triangular``, or the same
-      sweeps); then the ``"cuda"`` calibration row re-measured
+      within 2 of a host PCG (exact triangular solves through scipy's
+      ``splu`` of the factor in its own order, or the same sweeps); then
+      the ``"cuda"`` calibration row re-measured
       (``repro_torch.bench.calibrate``) beside the committed one;
    f. the serving tier: ``SolveService(strategy="auto")`` on lung2 (f64)
       registered with its planned build held, one forward request
@@ -103,8 +107,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
       size (its cold path, a refresh, every request answered, none
       failed, an eviction, the byte budget held, 20 answers against scipy
       to 1e-10) and the paper's experiments (``fig6_levels``,
-      ``exp1_codegen``, ``exp2_rewrite``) on the full lung2 with the JAX
-      benches' assertions, each writing its shared-schema JSON to
+      ``exp1_codegen``, ``exp2_rewrite``) on ``lung2_like(0.1)`` with the
+      JAX benches' assertions, each writing its shared-schema JSON to
       ``bench_out/BENCH_*_cuda.json``;
    g. the scatter layout (``layout="scatter"``) on lung2 (f64): every
       strategy plain, coarsened and rewritten, m in {1, 32}, both
@@ -184,16 +188,28 @@ Phases (any failure ends the run with a non-zero exit and no result line):
       tokens/s, model FLOPs over the step time beside the bf16 peak, peak
       memory, the save's seconds and bytes; then
       ``repro_torch.launch.serve --ckpt`` on that checkpoint; (b) the
-      first 2 layers at full width (B 2, S 128) on the card against the
+      first layer at full width (B 2, S 128) on the card against the
       same f32 masters on the CPU in f32 and bf16: the loss within 2e-2
       and every leaf's gradient within 5e-2 of the CPU's f32; the flash
       Function's q, k, v gradients against autograd through the plain
       version at gemma3-12b's capped and paligemma's prefix shapes; (c)
-      tripre through the launcher on the first 2 layers at full width, 3
+      tripre through the launcher on the first layer at full width, 3
       steps: each factor's levels before and after the rewrite, the SpMV
       launches per step (the rewritten solves' ``b' = E b``), seconds per
       refresh and per step; one (1152, 6912) leaf's update against dense
       f64 triangular solves on the card within 1e-4;
+   m. sharded training on a world of one NCCL rank (a ``(1, 1)``
+      ``("data", "model")`` mesh): (a) ``Trainer(mesh=)`` on gemma3-1b's
+      first 2 layers at full width, adamw, 3 steps of 8 x 512 tokens,
+      against the Trainer without a mesh from the same seed: the losses
+      and final parameters within 1e-6 relative, the flash kernel twice
+      per attention layer and step, the parameters of its checkpoint
+      restored with ``shardings=`` as DTensors; (b) llama4-scout's MoE
+      layer at full width (16 experts, bf16, 512 tokens) on the
+      expert-parallel path against the local path, the output and every
+      gradient; (c) ``compressed_allreduce`` over (a)'s gradient leaves:
+      the dequantized gradient and the residual, bit for bit; (d)
+      one-stage ``make_gpipe`` against the stage, forward and gradients;
 4. CUDA-event times per solve and per kernel (median and range of three
    batches; a solve slower than the batch budget is timed once), beside
    each kernel's bound, its plain version and a library call, and the
@@ -364,6 +380,10 @@ SCATTER_BUDGET_MS = 50.0
 DIST_CASES = (("plain", {}), ("rewrite", dict(rewrite=True)),
               ("coarsen", dict(coarsen=True)))
 DIST_FORWARD_COLLECTIVES = {"plain": 493, "rewrite": 58}
+# the scatter cases of phase 3g whose pair is a phase 3h case's levelset
+# baseline on the scatter layout, by that case's tag
+DIST_BASES = {"levelset": "plain", "rewrite:levelset": "rewrite",
+              "levelset+coarsen": "coarsen"}
 DIST_BUDGET_MS = 50.0
 DIST_PROBE_ROWS = 4096
 RECURRENCE_SHAPE = (1, 2048, 2560)
@@ -461,13 +481,33 @@ BF16_TENSOR_FLOPS = 989e12
 # against a dense f64 pair of triangular solves on the card.
 TRAIN_ARCH = "gemma3-1b"
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 6, 512, 8
-TRAIN_CHECK_LAYERS, TRAIN_CHECK_B, TRAIN_CHECK_S = 2, 2, 128
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_B, TRAIN_CHECK_S = 1, 2, 128
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = LM_CPU_TOL, 5e-2
 FLASH_GRAD_CASES = {"gemma3-12b capped": (FLASH_CASES["gemma3-12b prefill"], 0),
                     "paligemma prefix": ((1, 2048, 8, 1, 256, 0, 0.0), 256)}
-TRIPRE_LAYERS, TRIPRE_STEPS, TRIPRE_SEQ, TRIPRE_BATCH = 2, 3, 128, 8
+TRIPRE_LAYERS, TRIPRE_STEPS, TRIPRE_SEQ, TRIPRE_BATCH = 1, 3, 128, 8
 # tripre's update of one (d_model, d_ff) leaf against the dense f64 solves
 TRIPRE_TOL = 1e-4
+# Phase 3m: sharded training on a world of one NCCL rank (a (1, 1)
+# ("data", "model") mesh; NCCL refuses two ranks on one card, so the
+# cross-rank behaviour is held on gloo ranks by the CPU tests).  (a)
+# Trainer(mesh=) on gemma3-1b's first SHARD_LAYERS layers at full width,
+# adamw, SHARD_STEPS steps of SHARD_BATCH x SHARD_SEQ tokens, against the
+# Trainer without a mesh from the same seed: the losses and final
+# parameters within SHARD_TOL relative (a one-rank collective is the
+# identity), the flash kernel twice per attention layer and step, and the
+# parameters of the mesh run's checkpoint restored with shardings=.  (b)
+# one MoE layer of llama4-scout at full width (16 experts, bf16) on the
+# expert-parallel path against the local path, forward and every
+# gradient, on a SHARD_MOE_S-token batch.  (c) compressed_allreduce over (a)'s gradient
+# leaves: on one rank the dequantized gradient, the residual g - deq, bit
+# for bit.  (d) make_gpipe with one stage of SHARD_PIPE's shape against the
+# stage applied directly, forward and gradients.
+SHARD_ARCH = "gemma3-1b"
+SHARD_LAYERS, SHARD_STEPS, SHARD_SEQ, SHARD_BATCH = 2, 3, 512, 8
+SHARD_TOL = 1e-6
+SHARD_MOE_S = 512
+SHARD_PIPE = (4, 8, 1152)        # microbatches, rows per microbatch, width
 
 KERNELS = {
     "sptrsv_level": ("src/repro_torch/kernels/csrc/sptrsv_level.cu",
@@ -502,6 +542,9 @@ KERNELS = {
 # blocked solve runs the block apply)
 OFF_PATH = ()
 LEVEL_TAGS = ("pallas_level", "pallas_level+coarsen", "pallas_fused")
+# the set-up's solver builds at a time (on an 8-core host three finish its
+# builds sooner than two or four: four contend for the GIL and the cores)
+SETUP_THREADS = 3
 VARIANTS = {"pallas_level": dict(strategy="pallas_level"),
             "pallas_level+coarsen": dict(strategy="pallas_level", coarsen=True),
             "pallas_fused": dict(strategy="pallas_fused"),
@@ -1242,7 +1285,7 @@ def solver_surface(torch, dev, rng, L, levelset, scipy_csr, counts) -> dict:
     import gc
 
     import scipy.sparse as sp
-    from scipy.sparse.linalg import spsolve_triangular
+    from scipy.sparse.linalg import splu, spsolve_triangular
 
     from repro_torch.core import (GuardBreakdownError, GuardConfig,
                                   RewriteConfig, SpTRSV, SweepConfig,
@@ -1262,7 +1305,7 @@ def solver_surface(torch, dev, rng, L, levelset, scipy_csr, counts) -> dict:
 
     def serial_and_unroll():
         """serial (one solve each way, on a smaller lung2 against scipy:
-        exp1_codegen in phase 3f times it on the full one) and
+        phase 3f's cold answer runs it on the full one) and
         levelset_unroll against levelset"""
         from repro_torch.sparse import lung2_like
 
@@ -1405,10 +1448,12 @@ def solver_surface(torch, dev, rng, L, levelset, scipy_csr, counts) -> dict:
               f"{st.last_refine_steps} refinement steps, residual {res:.2e}")
 
     def pcg_runs(P, Lic):
-        """PCG against a host PCG with scipy's triangular solves (exact) and
-        with the same Jacobi sweeps (inexact)"""
+        """PCG against a host PCG with exact triangular solves and with the
+        same Jacobi sweeps (inexact).  The exact solves go through SuperLU
+        of the factor in its own order without pivoting (``L = (L D^-1)
+        D``), several times faster than ``spsolve_triangular``"""
         Ps = scipy_csr(P)[False]
-        Lc, LcT = scipy_csr(Lic)[False], scipy_csr(Lic)[True]
+        Lc = scipy_csr(Lic)[False]
         diag = Lic.diagonal()
         N = (Lc - sp.diags(diag)).tocsr()
         NT = N.T.tocsr()
@@ -1423,9 +1468,10 @@ def solver_surface(torch, dev, rng, L, levelset, scipy_csr, counts) -> dict:
         Bp = rng.standard_normal((P.n, PCG_M))
         Bp[:, 0] = bp
         t0 = time.perf_counter()
-        host = {"exact": host_pcg(Ps, bp, lambda r: spsolve_triangular(
-                    LcT, spsolve_triangular(Lc, r, lower=True), lower=False),
-                    PCG_TOL, PCG_MAXITER),
+        lu = splu(Lc.tocsc(), permc_spec="NATURAL", diag_pivot_thresh=0.0,
+                  options=dict(SymmetricMode=True))
+        host = {"exact": host_pcg(Ps, bp, lambda r: lu.solve(lu.solve(r), trans="T"),
+                                  PCG_TOL, PCG_MAXITER),
                 "sweeps": host_pcg(Ps, bp, lambda r: jacobi(NT, jacobi(N, r)),
                                    PCG_TOL, PCG_MAXITER)}
         print(f"phase 3e: host PCG (scipy) iterations {json.dumps(host)} in "
@@ -1506,7 +1552,7 @@ def serving_tier(torch, dev, L, scipy_csr, reset_counts, counts) -> dict:
     held, promotion, width-1 and width-SERVE_BATCH steps each way, and a
     NaN request in a guarded batch of 8; (b) the port's ``serve_bench``
     at its smoke size; (c) ``fig6_levels``, ``exp1_codegen`` and
-    ``exp2_rewrite`` on the full lung2.  Counters are read only while no
+    ``exp2_rewrite`` on ``lung2_like(0.1)``.  Counters are read only while no
     build runs.  Returns the launches of (a)-(b) and of (c)."""
     import gc
     import threading
@@ -1716,21 +1762,24 @@ def serving_tier(torch, dev, L, scipy_csr, reset_counts, counts) -> dict:
     gc.collect()
     serving_launches = dict(total)
 
-    # -- (c) the paper's experiments on the full lung2 -----------------------
+    # -- (c) the paper's experiments, on lung2_like(0.1) -------------------
+    # (each strategy they time on the full lung2 is timed there in phases 3e
+    # and 4, and the rewrite's levels are the set-up's; at full size they
+    # took ~50 s of the time limit)
     total.clear()
     t0 = time.perf_counter()
-    fig6 = fig6_levels.run(full_scale=True, json_path=str(out_dir / "BENCH_fig6_cuda.json"))
+    fig6 = fig6_levels.run(full_scale=False, json_path=str(out_dir / "BENCH_fig6_cuda.json"))
     print(f"phase 3f: fig6_levels in {time.perf_counter() - t0:.1f} s: "
           f"{fig6['lung2_like'].summary()}")
     t0 = time.perf_counter()
     exp1, c = counted(lambda: exp1_codegen.run(
-        full_scale=True, device=dev, json_path=str(out_dir / "BENCH_exp1_cuda.json")))
+        full_scale=False, device=dev, json_path=str(out_dir / "BENCH_exp1_cuda.json")))
     print(f"phase 3f: exp1_codegen in {time.perf_counter() - t0:.1f} s: ms "
           f"{json.dumps({k: round(v * 1e3, 4) for k, v in exp1.items()})}; "
           f"launches {json.dumps({k: v for k, v in c.items() if v})}")
     t0 = time.perf_counter()
     exp2, c = counted(lambda: exp2_rewrite.run(
-        full_scale=True, device=dev, json_path=str(out_dir / "BENCH_exp2_cuda.json")))
+        full_scale=False, device=dev, json_path=str(out_dir / "BENCH_exp2_cuda.json")))
     print(f"phase 3f: exp2_rewrite in {time.perf_counter() - t0:.1f} s: ms "
           f"{json.dumps({k: round(v * 1e3, 4) for k, v in exp2.items() if k != 'stats'})}; "
           f"{exp2['stats'].summary()}; launches "
@@ -1774,7 +1823,7 @@ def scatter_phase(torch, dev, rng, L, band, solvers, rw_solvers, scipy_csr,
             for m, b in dev_rhs.items()}
     reset_counts()
     t0 = time.perf_counter()
-    times, keep = {}, {}
+    times, keep, bases = {}, {}, {}
     for tag, kw, twin in SCATTER_CASES:
         kw = dict(kw)
         rewritten = kw.pop("rewrite", False)
@@ -1832,6 +1881,8 @@ def scatter_phase(torch, dev, rng, L, band, solvers, rw_solvers, scipy_csr,
                           f"{int(s.transpose)}: scatter {fmt_ms(ms)}, permuted "
                           f"{fmt_ms(pms)}")
         print(f"phase 3g: scatter {tag} pair built in {built:.2f} s")
+        if tag in DIST_BASES:
+            bases[DIST_BASES[tag], "scatter"] = pair
         if tag == "pallas_level":
             keep["scatter:pallas_level"] = pair[0]
         if tag == "pallas_level+coarsen":
@@ -1926,10 +1977,10 @@ def scatter_phase(torch, dev, rng, L, band, solvers, rw_solvers, scipy_csr,
           f"{json.dumps(bench_launches)}")
     print(f"phase 3g: gates {json.dumps(gates, default=str)}")
     return {"scatter": scatter_launches, "benches": bench_launches,
-            "times": times, "gates": gates, "keep": keep}
+            "times": times, "gates": gates, "keep": keep, "bases": bases}
 
 
-def distributed_phase(torch, dev, rng, L, scipy_csr, reset_counts,
+def distributed_phase(torch, dev, rng, L, bases, scipy_csr, reset_counts,
                       counts) -> dict:
     """Phase 3h: (a) ``strategy="distributed"`` on a world of one NCCL rank
     (``make_mesh((1,), ("data",))``: a ``FileStore`` in a temporary
@@ -1937,7 +1988,9 @@ def distributed_phase(torch, dev, rng, L, scipy_csr, reset_counts,
     ``all_gather``/``psum`` x plain/rewrite/coarsen, forward and
     transpose, m in WIDTHS; each answer's backward error against the
     factor (scipy CSR), agreement with the ``levelset`` solve of the same
-    transform and layout, ``psum`` equal to ``all_gather``, the collectives
+    transform and layout (the pair of ``bases`` an earlier phase built on
+    the same options, by ``(tag, layout)``, where there is one), ``psum``
+    equal to ``all_gather``, the collectives
     per solve equal to ``num_collectives`` (493 plain forward, 58
     rewritten); ms per solve beside the ``levelset`` solve's and the
     difference per collective; one permuted refresh; then
@@ -1988,8 +2041,8 @@ def distributed_phase(torch, dev, rng, L, scipy_csr, reset_counts,
                 kw["rewrite"] = RewriteConfig()
             for layout in ("permuted", "scatter"):
                 t1 = time.perf_counter()
-                base = SpTRSV.build_pair(L, device=dev, layout=layout,
-                                         strategy="levelset", **kw)
+                base = bases.get((tag, layout)) or SpTRSV.build_pair(
+                    L, device=dev, layout=layout, strategy="levelset", **kw)
                 pairs = {ds: SpTRSV.build_pair(
                     L, device=dev, layout=layout, strategy="distributed",
                     mesh=mesh, dist_strategy=ds, **kw)
@@ -2378,6 +2431,186 @@ def training_phase(torch, dev, rng, reset_counts, counts, flash_cuda,
             "spmv_per_step": spmv_per_step}
 
 
+def sharded_phase(torch, dev, rng, reset_counts, counts) -> dict:
+    """Phase 3m (SHARD_* constants): (a)-(d) above.  Returns the launches of
+    the mesh Trainer's run and the flash launches per step."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed import compressed_allreduce, make_gpipe
+    from repro_torch.launch.mesh import destroy_process_group, make_mesh
+    from repro_torch.models.layers import Init
+    from repro_torch.models.model import DistContext, Model
+    from repro_torch.models.moe import init_moe, moe_apply, shard_moe_params
+    from repro_torch.models.sharding import dp_axes
+    from repro_torch.optim import get_optimizer
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.train.steps import loss_and_grads
+    from repro_torch.tree import leaves, leaves_with_path, map_tree
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(SHARD_ARCH), num_layers=SHARD_LAYERS)
+    attn = sum(kind.startswith("attn") for kind in cfg.kinds())
+    data = SyntheticLM(cfg.vocab_size, SHARD_SEQ, SHARD_BATCH, family=cfg.family,
+                       d_model=cfg.d_model, prefix_len=cfg.prefix_len)
+    dirs = {k: tempfile.mkdtemp(prefix=f"chip_smoke_shard_{k}_") for k in ("plain", "mesh")}
+    mesh = make_mesh((1, 1), ("data", "model"), device=dev)
+    try:
+        # -- (a) Trainer(mesh=) against the Trainer without one --------------
+        runs = {}
+        for name, m in (("plain", None), ("mesh", mesh)):
+            tc = TrainConfig(steps=SHARD_STEPS, ckpt_every=SHARD_STEPS + 1,
+                             ckpt_dir=dirs[name], resume="none", max_recoveries=0)
+            trainer = Trainer(Model(cfg, remat=True, device=dev),
+                              get_optimizer("adamw", lr=3e-3, total_steps=SHARD_STEPS),
+                              data, tc, mesh=m)
+            torch.cuda.synchronize()
+            if m is not None:
+                reset_counts()
+            t1 = time.perf_counter()
+            res = trainer.run()
+            torch.cuda.synchronize()
+            if m is not None:
+                launches = counts()
+            runs[name] = (trainer, res, time.perf_counter() - t1)
+        (trainer, got, wall), (_, want, plain_wall) = runs["mesh"], runs["plain"]
+        hist = got["history"]
+        check(len(hist) == SHARD_STEPS and bool(np.isfinite(hist).all()),
+              f"sharded trainer: losses {hist}")
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(hist, want["history"]))
+        check(loss_err <= SHARD_TOL, f"sharded trainer: losses {hist} vs "
+              f"{want['history']} rel {loss_err:.3e}")
+        flash_per_step = launches["flash_attn"] / SHARD_STEPS
+        check(launches["flash_attn"] == SHARD_STEPS * 2 * attn,
+              f"sharded trainer: flash_attn launched {launches['flash_attn']} times, "
+              f"expected {SHARD_STEPS} steps x 2 x {attn} attention layers")
+        # the parameters of its checkpoint restored with shardings= (npz reads
+        # each leaf on its own: a third of the bytes with adamw's moments
+        # left on disk), against the plain run's
+        template = {"params": trainer.init_state()[0]}
+        t1 = time.perf_counter()
+        tree, manifest = trainer.ckpt.restore(template, shardings=trainer._shardings(template))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+        check(manifest["step"] == SHARD_STEPS and all(
+            hasattr(x, "placements") for x in leaves(tree["params"])),
+              "sharded restore: not DTensors at the final step")
+        with open(os.path.join(dirs["plain"], f"step_{SHARD_STEPS}", "manifest.json")) as f:
+            plain_manifest = json.load(f)
+        errs = {}
+        with np.load(os.path.join(dirs["plain"], f"step_{SHARD_STEPS}", "arrays.npz")) as a:
+            for path, leaf in leaves_with_path(tree["params"]):
+                w = torch.from_numpy(a[plain_manifest["leaves"][f"['params']{path}"]["key"]])
+                errs[path] = rel_err(leaf.to_local().float(), w.to(dev))
+        param_err = max(errs.values())
+        check(param_err <= SHARD_TOL, f"sharded trainer: final parameter "
+              f"{max(errs, key=errs.get)} rel {param_err:.3e}")
+        print(f"phase 3m: Trainer(mesh=(1, 1) NCCL) {SHARD_ARCH} first {SHARD_LAYERS} "
+              f"layers at full width (f32 masters as DTensors, bf16 compute, remat) adamw, "
+              f"{SHARD_STEPS} steps of {SHARD_BATCH} x {SHARD_SEQ} in {wall:.1f} s (without "
+              f"a mesh {plain_wall:.1f} s): losses {[round(x, 6) for x in hist]}, against "
+              f"the unsharded Trainer rel {loss_err:.3e}, final parameters rel "
+              f"{param_err:.3e} (tol {SHARD_TOL:g}); ms per step {[round(x * 1e3, 1) for x in got['step_seconds']]} "
+              f"(unsharded {[round(x * 1e3, 1) for x in want['step_seconds']]}); final save "
+              f"{got['save_seconds']:.2f} s for {got['save_bytes'] / 1e9:.3f} GB; the "
+              f"parameters restored with shardings= in {restore_s:.2f} s; flash launches per step {flash_per_step:g}; "
+              f"launches {json.dumps({k: v for k, v in launches.items() if v})}")
+
+        # -- (c) compressed_allreduce over (a)'s gradient leaves ---------------
+        batch_np = data.batch(0)
+        batch = {"tokens": batch_np.tokens, "labels": batch_np.labels}
+        model = trainer.model
+        grads, _ = loss_and_grads(model, tree["params"], batch,
+                                  dist=DistContext(mesh, dp_axes(mesh)))
+        del tree, template
+        group = mesh.get_group("data")
+        worst, n_el, t1 = 0.0, 0, time.perf_counter()
+        for g in leaves(grads):
+            g = g.to_local()
+            out, resid = compressed_allreduce(g, torch.zeros_like(g, dtype=torch.float32),
+                                              group)
+            scale = torch.clamp(g.abs().max(), min=1e-12) / 127.0
+            deq = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8).float() * scale
+            check(torch.equal(out, deq) and torch.equal(resid, g - deq),
+                  "compressed_allreduce on one rank: not the dequantized gradient")
+            worst = max(worst, rel_err(out, g.float()))
+            n_el += g.numel()
+        torch.cuda.synchronize()
+        comp_s = time.perf_counter() - t1
+        print(f"phase 3m: compressed_allreduce over {len(leaves(grads))} gradient leaves "
+              f"({n_el} elements) on one NCCL rank in {comp_s:.2f} s: the dequantized "
+              f"gradient and the residual g - deq bit for bit; int8 error against the "
+              f"gradient at most {worst:.3e} of a leaf's largest entry")
+        del grads, model, trainer, runs
+        torch.cuda.empty_cache()
+
+        # -- (b) one MoE layer of llama4-scout, expert parallel ----------------
+        mcfg = get_config(EP_ARCH)
+        ffn = init_moe(Init(torch.Generator(device=dev).manual_seed(2), torch.bfloat16,
+                            dev), mcfg)
+        x = torch.from_numpy(rng.standard_normal((1, SHARD_MOE_S, mcfg.d_model),
+                                                 dtype=np.float32)).to(dev, torch.bfloat16)
+        ct = torch.from_numpy(rng.standard_normal((1, SHARD_MOE_S, mcfg.d_model),
+                                                  dtype=np.float32)).to(dev)
+        res = {}
+        t1 = time.perf_counter()
+        for name in ("local", "ep"):
+            p = map_tree(lambda v: v.detach().requires_grad_(True), ffn)
+            xi = x.detach().requires_grad_(True)
+            if name == "ep":
+                y, aux = moe_apply(shard_moe_params(p, mesh), mcfg, xi, mesh=mesh)
+            else:
+                y, aux = moe_apply(p, mcfg, xi)
+            flat = [xi] + leaves(p)
+            res[name] = (y.detach(), float(aux.detach()),
+                         torch.autograd.grad((y.float() * ct).sum(), flat))
+        torch.cuda.synchronize()
+        moe_s = time.perf_counter() - t1
+        y_err = rel_err(res["ep"][0].float(), res["local"][0].float())
+        g_errs = [rel_err(a.float(), b.float()) for a, b in zip(res["ep"][2], res["local"][2])]
+        check(y_err <= EP_TOL and max(g_errs) <= EP_TOL and bool(np.isfinite(g_errs).all()),
+              f"{EP_ARCH} MoE layer: expert parallel vs local y {y_err:.3e}, gradients "
+              f"{g_errs}")
+        check(abs(res["ep"][1] - res["local"][1]) <= 1e-6, "EP aux differs from local")
+        print(f"phase 3m: {EP_ARCH} MoE layer at full width ({mcfg.n_experts} experts, "
+              f"D={mcfg.d_model}, F={mcfg.d_ff}, bf16), (1, {SHARD_MOE_S}) tokens, expert "
+              f"parallel on one NCCL rank against the local path: y rel {y_err:.3e}, "
+              f"bit-identical {torch.equal(res['ep'][0], res['local'][0])}; gradients of x "
+              f"and every leaf rel at most {max(g_errs):.3e} (tol {EP_TOL:g}); in "
+              f"{moe_s:.1f} s")
+        del ffn, res, x, ct
+        torch.cuda.empty_cache()
+
+        # -- (d) make_gpipe with one stage ---------------------------------------
+        M, mb, d = SHARD_PIPE
+        w = torch.from_numpy(rng.standard_normal((d, d), dtype=np.float32)
+                             ).to(dev).div_(d ** 0.5).requires_grad_(True)
+        xs = torch.from_numpy(rng.standard_normal((M, mb, d), dtype=np.float32)
+                              ).to(dev).requires_grad_(True)
+
+        def stage(p, h):
+            return torch.tanh(h @ p)
+
+        out = make_gpipe(stage, mesh, "data")(w, xs)
+        gw, gx = torch.autograd.grad(out.sum(), (w, xs))
+        ref = stage(w, xs)
+        rw, rx = torch.autograd.grad(ref.sum(), (w, xs))
+        errs = [rel_err(out.detach(), ref.detach()), rel_err(gw, rw), rel_err(gx, rx)]
+        check(max(errs) <= SHARD_TOL, f"make_gpipe one stage: rel {errs}")
+        print(f"phase 3m: make_gpipe, one stage tanh(x @ w) of ({d}, {d}), {M} "
+              f"microbatches of ({mb}, {d}) f32, against the stage applied directly: "
+              f"output, grad w, grad x rel {', '.join(f'{e:.3e}' for e in errs)} "
+              f"(tol {SHARD_TOL:g})")
+    finally:
+        destroy_process_group()
+        for d_ in dirs.values():
+            shutil.rmtree(d_, ignore_errors=True)
+    print(f"phase 3m: in {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "flash_per_step": flash_per_step}
+
+
 def main() -> int:
     # phase 3l's training peak (~38 GB) comes on top of the ~27 GB the
     # solvers of phases 3-4 hold; with fixed-size segments the allocator
@@ -2474,25 +2707,30 @@ def main() -> int:
           f"{WIDE_BAND_WIDTH}, fill=1.0): nnz={wide64.nnz} (generated in "
           f"{time.perf_counter() - t0:.1f} s)")
 
-    # Solvers of the paths, built once per dtype.
+    # Solvers of the paths, built once per dtype, SETUP_THREADS builds at a
+    # time (host numpy, torch and ctypes calls that release the GIL for
+    # much of a build; nothing is timed meanwhile)
     t0 = time.perf_counter()
-    solvers, rw_solvers, blk_solvers, wide_solvers = {}, {}, {}, {}
-    for dt, L in mats.items():
-        for tag, kw in VARIANTS.items():
-            solvers[tag, dt] = SpTRSV.build_pair(L, device="cuda", **kw)
-    t_lvl = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    for dt, L in mats.items():
-        for tag, kw in VARIANTS.items():
-            rw_solvers[tag, dt] = SpTRSV.build_pair(
-                L, device="cuda", rewrite=RewriteConfig(), **kw)
-    t_rw = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    for dt, B in bands.items():
-        blk_solvers[dt] = SpTRSV.build_pair(B, device="cuda", strategy="blocked")
-        wide_solvers[dt] = SpTRSV.build_pair(wide_bands[dt], device="cuda",
-                                             strategy="blocked")
-    t_blk = time.perf_counter() - t0
+    with ThreadPoolExecutor(max_workers=SETUP_THREADS) as pool:
+        built_pairs = {
+            **{("plain", tag, dt): pool.submit(SpTRSV.build_pair, L, device="cuda", **kw)
+               for dt, L in mats.items() for tag, kw in VARIANTS.items()},
+            **{("rewrite", tag, dt): pool.submit(SpTRSV.build_pair, L, device="cuda",
+                                                 rewrite=RewriteConfig(), **kw)
+               for dt, L in mats.items() for tag, kw in VARIANTS.items()},
+            **{("band", dt): pool.submit(SpTRSV.build_pair, B, device="cuda",
+                                         strategy="blocked")
+               for dt, B in bands.items()},
+            **{("wide band", dt): pool.submit(SpTRSV.build_pair, B, device="cuda",
+                                              strategy="blocked")
+               for dt, B in wide_bands.items()}}
+        built_pairs = {k: f.result() for k, f in built_pairs.items()}
+    t_pairs = time.perf_counter() - t0
+    solvers = {k[1:]: v for k, v in built_pairs.items() if k[0] == "plain"}
+    rw_solvers = {k[1:]: v for k, v in built_pairs.items() if k[0] == "rewrite"}
+    blk_solvers = {k[1]: v for k, v in built_pairs.items() if k[0] == "band"}
+    wide_solvers = {k[1]: v for k, v in built_pairs.items() if k[0] == "wide band"}
+    del built_pairs
     fwd = solvers["pallas_level", "float64"][0]
     for s in solvers["pallas_level", "float64"]:
         ks = [sl.K for sl in s.schedule.slabs]
@@ -2500,13 +2738,18 @@ def main() -> int:
               f"levels with K > 64: {sum(k > 64 for k in ks)}, padded FLOPs "
               f"{s.schedule.padded_flops()}; fused n_pad "
               f"{solvers['pallas_fused', 'float64'][int(s.transpose)].stats()['n_pad']}")
-    print(f"built {len(solvers)} solver pairs in {t_lvl:.1f} s; "
-          f"levels={fwd.analysis.num_levels} segments: "
+    print(f"built {len(solvers)} solver pairs, {len(rw_solvers)} rewritten and "
+          f"{len(blk_solvers) + len(wide_solvers)} blocked on {SETUP_THREADS} "
+          f"threads in {t_pairs:.1f} s; levels={fwd.analysis.num_levels} segments: "
           + ", ".join(f"{t}={solvers[t, 'float64'][0].stats()['segments']}"
                       for t in VARIANTS))
-    print(f"built {len(rw_solvers)} rewritten solver pairs in {t_rw:.1f} s")
     for s in rw_solvers["pallas_level", "float64"]:
         rs = s.rewrite_result
+        # fig6_levels' paper check on the full lung2 (phase 3f runs it on
+        # lung2_like(0.1), where the FLOP bound does not apply)
+        check(s.transpose or (rs.stats.level_reduction > 0.80
+                              and rs.stats.flop_increase < 0.20),
+              f"the forward rewrite of lung2: {rs.stats.summary()}")
         print(f"rewrite transpose={int(s.transpose)}: {rs.stats.summary()}; "
               f"E nnz {rs.E.nnz} (off-diagonal {rs.stats.e_nnz_offdiag}), "
               f"E ELL K {build_ell(rs.E).K}; segments: "
@@ -2518,8 +2761,7 @@ def main() -> int:
         print(f"blocked n={s.n} transpose={int(s.transpose)}: {st['segments']} segments, "
               f"{st['supernode_count']} supernodes, mean block "
               f"{st['mean_block_size']:.1f}, panel K max "
-              f"{max(sl.K for sl in s.block_schedule.slabs)} "
-              f"(built both dtypes in {t_blk:.1f} s)")
+              f"{max(sl.K for sl in s.block_schedule.slabs)}")
 
     # The blocked walk's layouts: the band's (from its solver), lung2's
     # single-row supernodes and a random factor of mixed block sizes.
@@ -2645,28 +2887,26 @@ def main() -> int:
                        f"{int(sfn.table.host[:, 0].max())}")
             del sfn, srows, scols, svals, sdiag, vf, df
 
-        # the fused solves on lung2's whole layouts: the single-RHS walk in
-        # both directions, the batched grid forward
-        for d, fsched in (("forward", sched),
-                          ("transpose", solvers["pallas_level", dt][1].schedule)):
-            flay = build_layout(fsched)
-            ftable = fused_table(flay, dev)
-            fcols = torch.from_numpy(flay.cols).to(dev)
-            fvals = torch.from_numpy(flay.vals).to(dev)
-            fdiag = torch.from_numpy(flay.diag).to(dev)
-            spans = torch.tensor(flay.spans, dtype=torch.int32, device=dev)
+        # the fused solves on lung2's whole layouts, the set-up's pallas_fused
+        # solvers' own buffers and tables: the single-RHS walk in both
+        # directions, the batched grid forward
+        for d, fs in zip(("forward", "transpose"), solvers["pallas_fused", dt]):
+            fn = fs._solve_fn
+            ftable, fcols, spans = fn.table, fn.cols, fn.spans
+            fvals, fdiag = fs._values
+            K, n_pad = fcols.shape
             for m in (WIDTHS if d == "forward" else (1,)):
-                bl = randn((flay.n_pad,) if m == 1 else (flay.n_pad, m), tdt)
+                bl = randn((n_pad,) if m == 1 else (n_pad, m), tdt)
                 xk = fused_cuda.fused_solve(bl, fcols, fvals, fdiag, spans, ftable)
-                xr = fused_solve_ref(bl, fcols, fvals, fdiag, chunk=flay.chunk)
+                xr = fused_solve_ref(bl, fcols, fvals, fdiag, chunk=fn.chunk)
                 record("sptrsv_fused" if m == 1 else "sptrsv_fused_batched", dt,
-                       xk, xr, f"m={m:2d} {d} whole layout n_pad={flay.n_pad} "
-                       f"K={flay.K} spans={len(flay.spans)}"
+                       xk, xr, f"m={m:2d} {d} whole layout n_pad={n_pad} "
+                       f"K={K} spans={spans.shape[0]}"
                        + (f", {ftable.num_groups} groups ({ftable.num_real} of "
                           f"real rows), grid {fused_cuda.walk_grid(tdt)} blocks"
                           if m == 1 else
                           f", grid {fused_cuda.batched_grid(tdt)} blocks"))
-            del flay, ftable, fcols, fvals, fdiag, spans, bl, xk, xr
+            del fn, ftable, fcols, fvals, fdiag, spans, bl, xk, xr
         # both fused solves on a chain (one row per span): the walk's 999
         # dependent hops, the batched grid's barrier per span
         chain = chain_matrix(CHAIN_N, dtype=np.dtype(dt))
@@ -2861,7 +3101,9 @@ def main() -> int:
                 m = WIDTHS[-1] if runs(tag, s, WIDTHS[-1]) else 1
                 b_np = rng.standard_normal((L.n,) if m == 1 else (L.n, m)).astype(dt)
                 ptrs = [v.data_ptr() for v in s._values]
+                t1 = time.perf_counter()
                 s.refresh(new)
+                took = time.perf_counter() - t1
                 check(ptrs == [v.data_ptr() for v in s._values],
                       f"{tag}: refresh moved a value buffer")
                 xn = s.solve(torch.from_numpy(b_np).to(dev)).double().cpu().numpy()
@@ -2869,7 +3111,7 @@ def main() -> int:
                 check(res <= RESIDUAL_TOL[dt],
                       f"refresh {tag} {dt} T={s.transpose}: residual {res:.3e}")
                 print(f"phase 3a: refresh {tag:21s} {dt} m={m:2d} transpose="
-                      f"{int(s.transpose)} residual {res:.2e}")
+                      f"{int(s.transpose)} in {took:.3f} s, residual {res:.2e}")
                 s.refresh(L.data)
     torch.cuda.synchronize()
     path_launches["level"] = counts()
@@ -2916,7 +3158,9 @@ def main() -> int:
                 b_np = rng.standard_normal((L.n,) if m == 1 else (L.n, m)).astype(dt)
                 bufs = (*s._values, s._e_values)
                 ptrs = [v.data_ptr() for v in bufs]
+                t1 = time.perf_counter()
                 s.refresh(new)
+                took = time.perf_counter() - t1
                 check(all(a is b_ for a, b_ in zip(bufs, (*s._values, s._e_values)))
                       and ptrs == [v.data_ptr() for v in (*s._values, s._e_values)],
                       f"rewrite {tag}: refresh moved a value buffer")
@@ -2925,7 +3169,8 @@ def main() -> int:
                 check(res <= RESIDUAL_TOL[dt],
                       f"refresh rewrite {tag} {dt} T={s.transpose}: residual {res:.3e}")
                 print(f"phase 3b: refresh rewrite {tag:21s} {dt} m={m:2d} "
-                      f"transpose={int(s.transpose)} residual {res:.2e}")
+                      f"transpose={int(s.transpose)} in {took:.3f} s, residual "
+                      f"{res:.2e}")
                 s.refresh(L.data)
     torch.cuda.synchronize()
     path_launches["rewrite"] = counts()
@@ -3060,7 +3305,11 @@ def main() -> int:
         check(sc["scatter"][name] > 0,
               f"{name} never launched on the scatter path")
     # 3h: the distributed solve on one NCCL rank, and the recurrence
-    dp = distributed_phase(torch, dev, rng, L64, scipy_csr, reset_counts, counts)
+    bases = {**sc.pop("bases"), ("plain", "permuted"): solvers["levelset", "float64"],
+             ("rewrite", "permuted"): rw_solvers["levelset", "float64"]}
+    dp = distributed_phase(torch, dev, rng, L64, bases, scipy_csr, reset_counts,
+                           counts)
+    del bases
     path_launches["distributed"] = dp["distributed"]
     path_launches["recurrence"] = dp["recurrence"]
     check(dp["distributed"]["spmv_ell"] > 0 and dp["distributed"]["spmv_ell_batched"] > 0,
@@ -3130,6 +3379,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"phase 3l: the training path in {time.perf_counter() - t0:.1f} s; "
           f"launches {json.dumps(path_launches['training'])}")
+    # 3m: sharded training on a world of one NCCL rank, the EP gradients,
+    # the compressed all-reduce and the pipeline
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = sharded_phase(torch, dev, rng, reset_counts, counts)
+    path_launches["sharded"] = sharded["launches"]
+    torch.cuda.empty_cache()
+    print(f"phase 3m: the sharded path in {time.perf_counter() - t0:.1f} s; "
+          f"launches {json.dumps(path_launches['sharded'])}")
     main_launches = {name: sum(p[name] for p in path_launches.values())
                      for name in KERNELS}
     print(f"phase 3: the paths in {time.perf_counter() - t_phase:.1f} s")
@@ -3294,13 +3553,12 @@ def main() -> int:
     # the single-RHS walk on the transpose layout (ELL width 1,975), and
     # what its wrapper adds around each launch: x̂'s fill and the scratch's
     # zeroing before, the error word's read after
-    tlay = build_layout(solvers["pallas_level", dt][1].schedule)
-    ttable = fused_table(tlay, dev)
-    tcols, tvals, tdiag = (torch.from_numpy(a).to(dev)
-                           for a in (tlay.cols, tlay.vals, tlay.diag))
+    # (the set-up's transpose pallas_fused solver's own buffers and table)
+    tfn = solvers["pallas_fused", dt][1]._solve_fn
+    ttable, tcols = tfn.table, tfn.cols
+    tvals, tdiag = solvers["pallas_fused", dt][1]._values
     bT = torch.from_numpy(rng.standard_normal((L.n, 1))).to(dev)
-    tbl = torch.cat([bT[:, 0], bT.new_zeros(1)]).index_select(
-        0, torch.from_numpy(tlay.perm_rows.astype(np.int64)).to(dev))
+    tbl = torch.cat([bT[:, 0], bT.new_zeros(1)]).index_select(0, tfn.perm_rows)
     LT = L.transpose()
     LT_csr = torch.sparse_csr_tensor(
         torch.from_numpy(LT.indptr), torch.from_numpy(LT.indices),
@@ -3308,7 +3566,7 @@ def main() -> int:
     t_ms = time_ms(torch, lambda: fused_cuda.fused_solve(tbl, tcols, tvals, tdiag,
                                                          table=ttable))
     t_plain = time_ms(torch, lambda: fused_solve_ref(tbl, tcols, tvals, tdiag,
-                                                     chunk=tlay.chunk))
+                                                     chunk=tfn.chunk))
     t_bound = solve_bound_ms(L, 1, dt)
     bits, pending = fused_cuda.PENDING[tdt]
     fill_ms = time_ms(torch, lambda: (
@@ -3321,7 +3579,7 @@ def main() -> int:
           f"({ftable.num_real} of real rows), transpose {ttable.num_groups} "
           f"({ttable.num_real}); around each launch: x̂ fill and scratch "
           f"zeroing {fmt_ms(fill_ms)}, the error word's read {fmt_ms(read_ms)}")
-    del tlay, ttable
+    del tfn, ttable
 
     def row(name, ms, plain_ms, bound, lib_ms, extra=None):
         print(f"phase 4: kernel {name:24s} f64: {fmt_ms(ms)} per solve "
@@ -3521,6 +3779,7 @@ def main() -> int:
         "launches": main_launches["flash_attn"],
         "launches_per_solve": per_solve["flash_attn"],
         "launches_per_train_step": training["flash_per_step"],
+        "launches_per_sharded_train_step": sharded["flash_per_step"],
         "max_abs_err": kernel_err["flash_attn", "bfloat16"], "ms": fl["ms"][0],
         "ms_min_max": list(fl["ms"][1:]), "plain_ms": fl["plain"][0],
         "bound_ms": fl["bound"][0], "bound_by": fl["bound"][1],

@@ -14,8 +14,14 @@
   and writes it in a daemon thread, beside the next train steps; ``wait()``
   joins before the next save or exit.
 * ``restore`` casts each array to its template leaf's dtype and device.
-  Restoring onto shardings (``shardings=``) waits for the mesh and sharding
-  layer (ROADMAP A12).
+* **Sharded trees** (DTensor leaves, the sharded Trainer's): ``save`` /
+  ``save_async`` gather each leaf on every rank (a collective, in leaf
+  order); rank 0 writes the files an unsharded save writes, and every rank
+  waits at a barrier (``save``'s end, or ``wait()`` after ``save_async``).
+  ``restore(shardings=)`` reads the whole array on every rank and keeps
+  this rank's block (a :class:`~repro_torch.models.sharding.NamedSharding`
+  per leaf; None, for a leaf or a whole subtree, restores it unsharded), so
+  a checkpoint restores onto any mesh shape, or none.
 """
 from __future__ import annotations
 
@@ -29,12 +35,11 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ..tree import leaves_with_path, map_tree, unflatten
+from ..tree import leaves, leaves_with_path, map_tree, unflatten
 
 __all__ = ["CheckpointManager", "save_pytree", "restore_pytree"]
-
-SHARDINGS = "restore(shardings=): not ported yet (ROADMAP A12)"
 
 
 def _host(leaf) -> tuple[np.ndarray, str]:
@@ -70,20 +75,44 @@ def save_pytree(tree: Any, path: str, *, manifest_extra: Optional[dict] = None):
 
 def restore_pytree(template: Any, path: str, *, shardings: Any = None) -> Any:
     """``template``'s structure with each leaf read from the checkpoint at
-    ``path``, cast to the template leaf's dtype and moved to its device."""
-    if shardings is not None:
-        raise NotImplementedError(SHARDINGS)
+    ``path``, cast to the template leaf's dtype and moved to its device;
+    with ``shardings``, a tree of the template's structure (a subtree may
+    be None), each leaf with a sharding this rank's block of it as a
+    DTensor."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     out = []
+    shards = leaves(_spread(shardings, template))
     with np.load(os.path.join(path, "arrays.npz")) as data:
-        for name, leaf in leaves_with_path(template):
+        for (name, leaf), sh in zip(leaves_with_path(template), shards):
             arr = data[manifest["leaves"][name]["key"]]
             if tuple(arr.shape) != tuple(leaf.shape):
                 raise ValueError(f"{name}: checkpoint shape {arr.shape}, "
                                  f"template {tuple(leaf.shape)}")
-            out.append(torch.from_numpy(arr).to(leaf.device, leaf.dtype))
+            if sh is None:
+                out.append(torch.from_numpy(arr).to(leaf.device, leaf.dtype))
+            else:
+                full = torch.from_numpy(arr).to(sh.mesh.device_type, leaf.dtype)
+                out.append(sh.shard(full))
     return unflatten(template, out)
+
+
+def _spread(shardings, template):
+    """``shardings`` with each None subtree spread to a None per leaf of
+    ``template``'s matching subtree."""
+    if shardings is None:
+        return map_tree(lambda _: None, template)
+    if isinstance(template, dict):
+        return {k: _spread(shardings[k], v) for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        return type(template)(_spread(s, t) for s, t in zip(shardings, template))
+    return shardings
+
+
+def _is_sharded(tree) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(x, DTensor) for x in leaves(tree))
 
 
 class CheckpointManager:
@@ -92,6 +121,7 @@ class CheckpointManager:
         self.keep = keep
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
+        self._barrier = False      # a sharded save_async the ranks wait for
 
     # -- discovery -----------------------------------------------------------
     def steps(self):
@@ -120,23 +150,39 @@ class CheckpointManager:
 
     @staticmethod
     def _to_host(tree):
-        return map_tree(lambda a: a.detach().cpu() if torch.is_tensor(a)
-                        else np.asarray(a), tree)
+        """Every leaf on the host; a DTensor gathered whole (a collective)."""
+        def host(a):
+            if torch.is_tensor(a):
+                a = a.full_tensor() if hasattr(a, "full_tensor") else a
+                return a.detach().cpu()
+            return np.asarray(a)
+        return map_tree(host, tree)
 
     def save(self, tree: Any, step: int, **extra):
-        self._write(self._to_host(tree), step, extra)
+        sharded = _is_sharded(tree)
+        host = self._to_host(tree)
+        if not sharded or dist.get_rank() == 0:
+            self._write(host, step, extra)
+        if sharded:
+            dist.barrier()
 
     def save_async(self, tree: Any, step: int, **extra):
         self.wait()
+        sharded = _is_sharded(tree)
         host = self._to_host(tree)
-        self._thread = threading.Thread(
-            target=self._write, args=(host, step, extra), daemon=True)
-        self._thread.start()
+        if not sharded or dist.get_rank() == 0:
+            self._thread = threading.Thread(
+                target=self._write, args=(host, step, extra), daemon=True)
+            self._thread.start()
+        self._barrier = sharded
 
     def wait(self):
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()
 
     def _gc(self):
         steps = self.steps()

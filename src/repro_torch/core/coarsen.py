@@ -37,7 +37,7 @@ import torch
 
 from .analysis import MatrixAnalysis
 from .calibrate import BackendCalibration, get_calibration
-from .codegen import LevelSlab, Schedule, slab_padded_flops
+from .codegen import LevelSlab, Schedule, _runs, slab_padded_flops
 from .csr import CSRMatrix
 from .levels import Supernodes, _propagate_levels
 
@@ -347,39 +347,38 @@ def build_block_schedule(
         dense = np.zeros((B, T, T), np.float64)
         diag_src = np.full((B, T, T), -1, np.int64)
         pad_eye = np.zeros((B, T, T), np.float64)
+        ar = np.arange(T)
+        pad_eye[:, ar, ar] = ar[None, :] >= sizes[:, None]
         lane_row = np.full(BT, n, np.int64)
-        offs = []           # (lane, off-block cols, off-block data positions)
-        K = 1
-        for bi, k in enumerate(blocks):
-            r0, r1 = int(bp[k]), int(bp[k + 1])
-            for t, r in enumerate(range(r0, r1)):
-                lo, hi = int(indptr[r]), int(indptr[r + 1])
-                c = indices[lo:hi]
-                pos = np.arange(lo, hi, dtype=np.int64)
-                inb = (c >= r0) & (c < r1)
-                ci = c[inb] - r0
-                dense[bi, t, ci] = data[lo:hi][inb]
-                diag_src[bi, t, ci] = pos[inb]
-                lane = bi * T + t
-                lane_row[lane] = r
-                cofs = c[~inb]
-                offs.append((lane, cofs, pos[~inb]))
-                K = max(K, len(cofs))
-            for t in range(r1 - r0, T):
-                pad_eye[bi, t, t] = 1.0
+        # the level's rows block-major, each with its block, its offset in
+        # the block and its lane
+        r0 = bp[blocks].astype(np.int64)
+        rows, bi, t = _runs(r0, sizes)
+        lane_row[bi * T + t] = rows
+        # their entries in CSR order: in-block ones fill the dense blocks,
+        # the rest each row's off-block panel slots in order
+        lo = indptr[rows].astype(np.int64)
+        pos, er, _ = _runs(lo, indptr[rows + 1].astype(np.int64) - lo)
+        c = indices[pos]
+        inb = (c >= r0[bi[er]]) & (c < r0[bi[er]] + sizes[bi[er]])
+        e = er[inb]
+        ci = c[inb] - r0[bi[e]]
+        dense[bi[e], t[e], ci] = data[pos[inb]]
+        diag_src[bi[e], t[e], ci] = pos[inb]
+        out = er[~inb]
+        per_row = np.bincount(out, minlength=rows.size)
+        K = max(int(per_row.max()) if rows.size else 0, 1)
+        slot = np.arange(out.size) - np.repeat(np.cumsum(per_row) - per_row, per_row)
+        lane = bi[out] * T + t[out]
         # batched inversion in float64 — padded lanes are identity, so the
         # inverse exists whenever the diagonal does
         dinv = np.linalg.inv(dense + pad_eye)
         cols = np.zeros((K, BT), np.int32)
         vals = np.zeros((K, BT), dtype=M.data.dtype)
         val_src = np.full((K, BT), -1, np.int64)
-        for lane, cofs, pofs in offs:
-            kk = len(cofs)
-            cols[:kk, lane] = cofs
-            vals[:kk, lane] = data[pofs]
-            val_src[:kk, lane] = pofs
-        rows = np.concatenate(
-            [np.arange(bp[k], bp[k + 1], dtype=np.int64) for k in blocks])
+        cols[slot, lane] = c[~inb]
+        vals[slot, lane] = data[pos[~inb]]
+        val_src[slot, lane] = pos[~inb]
         slabs.append(BlockSlab(
             blocks=blocks, rows=rows, sizes=sizes, dinv=dinv,
             diag_src=diag_src, pad_eye=pad_eye, cols=cols, vals=vals,

@@ -182,6 +182,20 @@ class EllMatrix:
         return self.cols.shape[0]
 
 
+def _runs(starts: np.ndarray, lengths: np.ndarray):
+    """The runs ``starts[r] + k`` for ``k < lengths[r]``, flattened in run
+    order: each position, its run ``r`` and its offset ``k`` in the run —
+    how the ELL packers place CSR rows without a loop per row."""
+    lengths = np.asarray(lengths, dtype=np.int64)
+    if lengths.size == 1:           # one run (a level of one row): no gathers
+        k = np.arange(lengths[0])
+        return int(starts[0]) + k, np.zeros(k.size, np.int64), k
+    owner = np.repeat(np.arange(lengths.size), lengths)
+    k = np.arange(int(lengths.sum())) - np.repeat(np.cumsum(lengths) - lengths,
+                                                  lengths)
+    return np.asarray(starts, dtype=np.int64)[owner] + k, owner, k
+
+
 def _pack_rows(
     L: CSRMatrix, rows: np.ndarray, sort_by_nnz: bool, *, diag_first: bool = False
 ) -> LevelSlab:
@@ -201,26 +215,14 @@ def _pack_rows(
     R = rows.size
     cols = np.zeros((K, R), dtype=np.int32)
     vals = np.zeros((K, R), dtype=L.dtype)
-    diag = np.empty((R,), dtype=L.dtype)
     val_src = np.full((K, R), -1, dtype=np.int64)
-    diag_src = np.empty((R,), dtype=np.int64)
-    for r, i in enumerate(rows):
-        lo, hi = int(L.indptr[int(i)]), int(L.indptr[int(i) + 1])
-        c, v = L.indices[lo:hi], L.data[lo:hi]
-        if diag_first:
-            diag[r] = v[0]
-            diag_src[r] = lo
-            c, v = c[1:], v[1:]
-            src = np.arange(lo + 1, hi, dtype=np.int64)
-        else:
-            diag[r] = v[-1]
-            diag_src[r] = hi - 1
-            c, v = c[:-1], v[:-1]
-            src = np.arange(lo, hi - 1, dtype=np.int64)
-        k = c.size
-        cols[:k, r] = c
-        vals[:k, r] = v
-        val_src[:k, r] = src
+    lo = L.indptr[rows].astype(np.int64)
+    diag_src = lo if diag_first else L.indptr[rows + 1].astype(np.int64) - 1
+    diag = L.data[diag_src]
+    src, r, k = _runs(lo + 1 if diag_first else lo, row_nnz)
+    cols[k, r] = L.indices[src]
+    vals[k, r] = L.data[src]
+    val_src[k, r] = src
     return LevelSlab(rows=rows.astype(np.int32), cols=cols, vals=vals,
                      diag=diag, val_src=val_src, diag_src=diag_src)
 
@@ -276,12 +278,10 @@ def build_ell(M: CSRMatrix) -> EllMatrix:
     cols = np.zeros((K, M.n), dtype=np.int32)
     vals = np.zeros((K, M.n), dtype=M.dtype)
     val_src = np.full((K, M.n), -1, dtype=np.int64)
-    for i in range(M.n):
-        lo, hi = int(M.indptr[i]), int(M.indptr[i + 1])
-        k = hi - lo
-        cols[:k, i] = M.indices[lo:hi]
-        vals[:k, i] = M.data[lo:hi]
-        val_src[:k, i] = np.arange(lo, hi, dtype=np.int64)
+    src, i, k = _runs(M.indptr[:-1], row_nnz)
+    cols[k, i] = M.indices[src]
+    vals[k, i] = M.data[src]
+    val_src[k, i] = src
     return EllMatrix(cols=cols, vals=vals, val_src=val_src)
 
 
@@ -300,13 +300,10 @@ def build_offdiag_ell(M: CSRMatrix, *, upper: bool = False):
     cols = np.zeros((K, M.n), dtype=np.int32)
     vals = np.zeros((K, M.n), dtype=M.dtype)
     val_src = np.full((K, M.n), -1, dtype=np.int64)
-    for i in range(M.n):
-        lo, hi = int(M.indptr[i]), int(M.indptr[i + 1])
-        sl = slice(lo + 1, hi) if upper else slice(lo, hi - 1)
-        k = sl.stop - sl.start
-        cols[:k, i] = M.indices[sl]
-        vals[:k, i] = M.data[sl]
-        val_src[:k, i] = np.arange(sl.start, sl.stop, dtype=np.int64)
+    src, i, k = _runs(M.indptr[:-1] + (1 if upper else 0), row_nnz)
+    cols[k, i] = M.indices[src]
+    vals[k, i] = M.data[src]
+    val_src[k, i] = src
     diag = M.diagonal(first=upper)
     diag_src = (M.indptr[:-1] if upper else M.indptr[1:] - 1).astype(np.int64)
     return EllMatrix(cols=cols, vals=vals, val_src=val_src), diag, diag_src

@@ -254,8 +254,11 @@ def gather_src(data: np.ndarray, src: np.ndarray, fill, dtype) -> np.ndarray:
     """Masked source-map gather: ``out[i] = data[src[i]]`` where ``src >= 0``
     and ``fill`` at padding slots (``src < 0``)."""
     data = np.asarray(data)
-    out = np.where(src >= 0, data[np.clip(src, 0, None)], fill)
-    return out.astype(dtype, copy=False)
+    # the sourced slots only: a padded layout is mostly fill
+    out = np.full(src.shape, fill, dtype=dtype)
+    real = src >= 0
+    out[real] = data[src[real]]
+    return out
 
 
 def pack_values(layout: PackedLayout, data: np.ndarray):

@@ -554,8 +554,8 @@ class SpTRSV:
                     value_bytes=int(flay.vals.nbytes + flay.diag.nbytes),
                     index_bytes=int(flay.cols.nbytes),
                     padded_value_bytes=int(
-                        ((flay.val_src < 0).sum() + (flay.diag_src < 0).sum())
-                        * flay.vals.itemsize),
+                        (flay.vals.size - repack.sourced
+                         + (flay.diag_src < 0).sum()) * flay.vals.itemsize),
                     n_pad=flay.n_pad,
                     num_segments=1,
                 )
@@ -792,8 +792,11 @@ class SpTRSV:
                 rw, L=CSRMatrix(rw.L.indptr, rw.L.indices, target_data,
                                 rw.L.shape),
                 E=CSRMatrix(rw.E.indptr, rw.E.indices, e_data, rw.E.shape))
-        for buf, new in zip(self._values, ctx.repack(target_data)):
-            buf.copy_(torch.from_numpy(np.ascontiguousarray(new)))
+        if hasattr(ctx.repack, "into"):
+            ctx.repack.into(self._values, target_data)
+        else:
+            for buf, new in zip(self._values, ctx.repack(target_data)):
+                buf.copy_(torch.from_numpy(np.ascontiguousarray(new)))
         self._refresh_ctx = dataclasses.replace(
             ctx, source=CSRMatrix(ctx.source.indptr, ctx.source.indices,
                                   data, ctx.source.shape))

@@ -125,8 +125,13 @@ def make_packed_solver(schedule: Schedule, *, device="cuda", chunk: int = 512):
 
     ``values0`` are the packed ``(vals (K, n_pad), diag (n_pad,))`` tensors
     on ``device``; ``repack(data)`` re-packs new matrix data of the same
-    pattern as numpy arrays of the same shapes.  The single-RHS walk's
-    table, built once here, is ``solve.table``."""
+    pattern as numpy arrays of the same shapes, and ``repack.into(buffers,
+    data)`` writes them into the value tensors in place (``repack.sourced``
+    of the ``K * n_pad`` slots hold matrix values, the rest pad).  The solve's
+    device buffers are ``solve.cols``, ``solve.spans`` and
+    ``solve.perm_rows`` (its chunk ``solve.chunk``), and the single-RHS
+    walk's table, built once here, ``solve.table``.  Neither closure keeps
+    the host layout."""
     dev = resolve_device(device)
     lay = build_layout(schedule, chunk)
     n = lay.n
@@ -142,9 +147,31 @@ def make_packed_solver(schedule: Schedule, *, device="cuda", chunk: int = 512):
     values0 = (torch.from_numpy(lay.vals).to(dev),
                torch.from_numpy(lay.diag).to(dev))
 
+    # the sourced slots of the padded (K, n_pad) values and their sources in
+    # the matrix data; every other slot is a pad, 0 through every refresh
+    # (the transpose layout of a factor with a dense column is almost all
+    # pad)
+    src_flat = lay.val_src.reshape(-1)
+    slots = np.flatnonzero(src_flat >= 0)
+    slot_src = src_flat[slots]
+    slots_d = torch.from_numpy(slots).to(dev)
+    shape, vdt = lay.vals.shape, lay.vals.dtype
+    diag_src, ddt = lay.diag_src, lay.diag.dtype
+
     def repack(data):
-        return (gather_src(data, lay.val_src, 0.0, lay.vals.dtype),
-                gather_src(data, lay.diag_src, 1.0, lay.diag.dtype))
+        data = np.asarray(data)
+        vals = np.zeros(shape, dtype=vdt)
+        vals.reshape(-1)[slots] = data[slot_src]
+        return vals, gather_src(data, diag_src, 1.0, ddt)
+
+    def repack_into(buffers, data):
+        vals, diag = buffers
+        data = np.asarray(data)
+        new = torch.from_numpy(data[slot_src].astype(vdt, copy=False))
+        vals.view(-1).index_copy_(0, slots_d, new.to(vals))
+        diag.copy_(torch.from_numpy(gather_src(data, diag_src, 1.0, ddt)))
+
+    repack.into, repack.sourced = repack_into, int(slots.size)
 
     def solve(b: torch.Tensor, values) -> torch.Tensor:
         vals, diag = values
@@ -152,10 +179,11 @@ def make_packed_solver(schedule: Schedule, *, device="cuda", chunk: int = 512):
         b_ext = torch.cat([b, b.new_zeros((1,) + tuple(b.shape[1:]))])
         bl_perm = b_ext.index_select(0, perm_rows)  # pad rows -> b_ext[n] = 0
         xp = fused_solve(bl_perm, cols, vals.to(dt), diag.to(dt),
-                         chunk=lay.chunk, spans=spans, table=table)
+                         chunk=chunk, spans=spans, table=table)
         return xp.index_select(0, pos)
 
-    solve.table = table
+    solve.table, solve.cols, solve.spans = table, cols, spans
+    solve.perm_rows, solve.chunk = perm_rows, chunk
     return solve, values0, repack, lay
 
 

@@ -30,7 +30,7 @@ from ..kernels.backend import resolve_device
 from .config import ModelConfig
 from .model import DTYPES, check_supported
 
-__all__ = ["from_jax", "jax_ndims", "scanned_layers"]
+__all__ = ["from_jax", "jax_ndims", "jax_paths", "scanned_layers"]
 
 # leaves the JAX package uses in f32 whatever the compute dtype: norm
 # scales, the RG-LRU's lam and the sLSTM's recurrent matrices
@@ -101,4 +101,27 @@ def jax_ndims(params: dict, cfg: ModelConfig) -> dict:
     if "encoder" in params:
         out["encoder"] = {"layers": [ranks(lp, 1) for lp in params["encoder"]["layers"]],
                           "ln": ranks(params["encoder"]["ln"], 0)}
+    return out
+
+
+def jax_paths(params: dict, cfg: ModelConfig) -> dict:
+    """``params``' structure with each leaf's path in the JAX package's
+    tree, ``/``-joined as its sharding rules read it: a scanned layer's
+    leaves under ``blocks/p<pos>/``, a tail layer's under ``tail/<j>/``,
+    the encoder's layers under ``encoder/blocks/p0/``."""
+    def paths(tree, prefix):
+        if isinstance(tree, dict):
+            return {k: paths(v, f"{prefix}/{k}" if prefix else k)
+                    for k, v in tree.items()}
+        return prefix
+
+    n_scan, n_pat = scanned_layers(cfg), len(cfg.block_pattern)
+    out = {k: paths(v, k) for k, v in params.items() if k not in ("layers", "encoder")}
+    out["layers"] = [paths(lp, f"blocks/p{i % n_pat}" if i < n_scan
+                           else f"tail/{i - n_scan}")
+                     for i, lp in enumerate(params["layers"])]
+    if "encoder" in params:
+        out["encoder"] = {"layers": [paths(lp, "encoder/blocks/p0")
+                                     for lp in params["encoder"]["layers"]],
+                          "ln": paths(params["encoder"]["ln"], "encoder/ln")}
     return out

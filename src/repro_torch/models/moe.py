@@ -19,7 +19,13 @@ Switch auxiliary loss.  Two paths share that dispatch:
   ``"data"``, which an ``all_gather`` undoes in the block.  Each rank sends
   every expert's capacity buffer to the rank that holds the expert and
   gets the outputs back (two ``all_to_all``), then averages ``aux`` over
-  data, then over model.
+  data, then over model.  The collectives carry gradients
+  (:mod:`repro_torch.distributed.collectives`): ``x``'s is this rank's
+  tokens' own, the router's this rank's share (the caller sums it over the
+  batch axes), and an expert slice's the whole gradient of that slice —
+  summed over the FSDP axis by the gather's reduce-scatter, and the mean
+  over the ``"model"`` ranks of a data row, which send the experts the same
+  tokens.
 
 llama4-scout adds a shared (always-on) expert and arctic a parallel dense
 MLP: plain MLPs on the MoE's normed input, outside the expert region, each
@@ -38,7 +44,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from ..core.dist import all_gather_tensor, axis_size
+from ..core.dist import axis_size
+from ..distributed.collectives import all_gather, all_reduce, all_to_all, scale_grad
 from .config import ModelConfig
 from .layers import Init, dense, init_dense, init_mlp, init_rms_norm, mlp_apply, rms_norm
 
@@ -158,21 +165,12 @@ def _gather_axis1(w: torch.Tensor, group) -> torch.Tensor:
     """The tiled all-gather of ``w`` ``(a, b, c)`` along axis 1 over
     ``group`` → ``(a, n * b, c)``, rank ``i``'s slice at ``[:, i*b:(i+1)*b]``.
     The collective concatenates along axis 0, so the gather lands in an
-    ``(n, a, b, c)`` buffer whose axis is then moved."""
+    ``(n, a, b, c)`` buffer whose axis is then moved.  Its gradient is the
+    reduce-scatter: the sum over ``group``, this rank's slice."""
     n = dist.get_world_size(group)
     a, b, c = w.shape
-    out = w.new_empty((n * a, b, c))
-    all_gather_tensor(out, w.contiguous(), group=group)
+    out = all_gather(w, group)
     return out.view(n, a, b, c).transpose(0, 1).reshape(a, n * b, c)
-
-
-def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
-    """``x`` ``(n, ...)``: slice ``j`` goes to rank ``j`` of ``group``; the
-    result's slice ``i`` came from rank ``i``."""
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=group)
-    return out
 
 
 def _moe_ep(params: dict, cfg: ModelConfig, x2: torch.Tensor, mesh,
@@ -188,23 +186,25 @@ def _moe_ep(params: dict, cfg: ModelConfig, x2: torch.Tensor, mesh,
                          f"expert slices of shard_moe_params ({E} experts, "
                          f"{el} a rank); got wi {tuple(params['wi'].shape)}")
     fsdp_group, ep_group = mesh.get_group(fsdp), mesh.get_group(ep_axis)
-    # the FSDP all-gather of this layer's expert shards
-    wi, wg, wo = (_gather_axis1(params[n], fsdp_group) for n in ("wi", "wg", "wo"))
+    # the FSDP all-gather of this layer's expert shards; the ep ranks of a
+    # data row send the experts the same tokens, so each expert's gradient
+    # is the mean over those ep copies
+    wi, wg, wo = (scale_grad(_gather_axis1(params[n], fsdp_group), 1 / ep)
+                  for n in ("wi", "wg", "wo"))
     routes = _Routes(params, cfg, x2, capacity(x2.shape[0], cfg))
     C = routes.C
     # dispatch: expert block j of every rank's buffer to rank j, which
     # stacks the ranks' tokens for its experts along the slots
-    recv = _all_to_all(routes.pack(x2).reshape(ep, el, C, D), ep_group)
+    recv = all_to_all(routes.pack(x2).reshape(ep, el, C, D), ep_group)
     recv = recv.permute(1, 0, 2, 3).reshape(el, ep * C, D)
     y_loc = expert_ffn(recv, wi, wg, wo)                       # (el, ep*C, D)
     # and back: rank i's slots to rank i, stacked in expert order
     send = y_loc.reshape(el, ep, C, D).permute(1, 0, 2, 3)
-    back = _all_to_all(send, ep_group).reshape(E, C, D)
+    back = all_to_all(send, ep_group).reshape(E, C, D)
     aux = routes.aux()
     for axis in (*dp_axes, ep_axis):
         group = mesh.get_group(axis)
-        dist.all_reduce(aux, group=group)
-        aux = aux / dist.get_world_size(group)
+        aux = all_reduce(aux, group) / dist.get_world_size(group)
     return routes.combine(back), aux
 
 

@@ -27,6 +27,11 @@ The factors live in a host-side cache keyed by the leaf's path, refreshed
 every ``refresh_every`` steps; the optimizer's ``stats`` keep, per leaf,
 the factor's size, shift and levels before and after the rewrite, and the
 seconds of each refresh.
+
+Sharded parameters (DTensors, the sharded Trainer's) are updated whole:
+each leaf's gradient, parameter and momentum are gathered, every rank
+computes the same update (the factor needs the whole Gram) and keeps its
+blocks; the Gram is a plain tensor, whole on every rank.
 """
 from __future__ import annotations
 
@@ -101,6 +106,18 @@ def make_banded_solvers(L_np: np.ndarray, *, use_rewrite: bool = True,
     return solve, fwd, bwd
 
 
+def _sharded_update(one, key, g, p, m, G):
+    """``one`` on a sharded leaf: its gradient, parameter and momentum
+    gathered whole, the update computed whole on every rank (the same on
+    each: the factor needs the whole Gram), each rank keeping its blocks;
+    the Gram whole on every rank."""
+    from ..models.sharding import shard, spec_of
+
+    p_new, m_new, G = one(key, g.full_tensor(), p.full_tensor(), m.full_tensor(), G)
+    spec, mesh = spec_of(p), p.device_mesh
+    return shard(p_new, spec, mesh), shard(m_new, spec, mesh), G
+
+
 def _levels(s) -> dict:
     """The factor's levels before and after its rewrite."""
     rr = s.rewrite_result
@@ -132,7 +149,8 @@ def tripre(lr=3e-4, b1=0.9, beta_g=0.95, band: int = 8,
     def init(params):
         def gram(p):
             d = min(p.shape) if eligible(p) else 0
-            return p.new_zeros((d, d), dtype=torch.float32)
+            local = p.to_local() if hasattr(p, "to_local") else p
+            return local.new_zeros((d, d), dtype=torch.float32)
         flat = leaves(params)
         return {"m": unflatten(params, [torch.zeros_like(p, dtype=torch.float32)
                                         for p in flat]),
@@ -142,11 +160,11 @@ def tripre(lr=3e-4, b1=0.9, beta_g=0.95, band: int = 8,
     def update(grads, state, params):
         step = int(state["step"]) + 1
         lr_t = float(schedule(torch.tensor(step)) if schedule else lr)
-        flat_g = leaves_with_path(grads)
-        flat_p, flat_m, flat_G = (leaves(t) for t in (params, state["m"], state["G"]))
         refreshed = 0.0
-        new_p, new_m, new_G = [], [], []
-        for (key, g), p, m, G in zip(flat_g, flat_p, flat_m, flat_G):
+
+        def one(key, g, p, m, G):
+            """One leaf's ``(new p, m, G)``."""
+            nonlocal refreshed
             g = g.float()
             m = b1 * m + (1 - b1) * g
             u = m
@@ -169,11 +187,16 @@ def tripre(lr=3e-4, b1=0.9, beta_g=0.95, band: int = 8,
                          / torch.clamp(torch.linalg.vector_norm(u), min=1e-12))
             if weight_decay:
                 u = u + weight_decay * p.float()
-            new_p.append((p.float() - lr_t * u).to(p.dtype))
-            new_m.append(m)
-            new_G.append(G)
+            return (p.float() - lr_t * u).to(p.dtype), m, G
+
+        flat_p, flat_m, flat_G = (leaves(t) for t in (params, state["m"], state["G"]))
+        new = [_sharded_update(one, key, g, p, m, G) if hasattr(p, "full_tensor")
+               else one(key, g, p, m, G)
+               for (key, g), p, m, G in zip(leaves_with_path(grads), flat_p,
+                                             flat_m, flat_G)]
         if refreshed:
             stats["refresh_s"].append(refreshed)
+        new_p, new_m, new_G = ([n[i] for n in new] for i in range(3))
         return (unflatten(params, new_p),
                 {"m": unflatten(params, new_m), "G": unflatten(params, new_G),
                  "step": torch.full((), step, dtype=torch.int32,

@@ -17,17 +17,40 @@ stacked ``reps`` axis, so here a leaf counts its rank in that layout
 (:func:`repro_torch.models.convert.jax_ndims`).  A scanned layer's norm
 scales and conv biases are then cast, a tail layer's are not.  The cast's
 backward accumulates the gradient back into f32.
+
+With ``dist`` (a :class:`~repro_torch.models.model.DistContext` whose mesh
+is a ``DeviceMesh``) the step is one rank's part of the sharded step: the
+parameters and optimizer state are DTensors
+(:func:`repro_torch.models.sharding.shard_params`) and the batch is this
+rank's shard (:func:`repro_torch.models.sharding.batch_specs`).
+
+* Each rank's loss is its share of the JAX loss over the global batch:
+  its tokens' summed cross-entropy and z-loss over the global token count
+  (all-reduced over the batch axes ``dist.dp_axes``), plus the MoE
+  auxiliary loss, which every rank holds whole, over the number of batch
+  shards.  The metrics are the global values.
+* The parameters are cast (``cast_params``) and then all-gathered, so the
+  gathers travel in the compute dtype; every leaf is computed on whole,
+  replicated, except the experts of an MoE layer, which stay sharded for
+  the expert-parallel path (:mod:`repro_torch.models.moe`).
+* The gradients of the gathered leaves are summed over the batch axes —
+  not over ``"model"``, whose ranks hold the same tokens — and each rank
+  keeps its block; an expert slice's gradient comes out of the
+  expert-parallel path already summed over the FSDP axis.
+* ``micro_steps`` splits this rank's shard.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.distributed as tdist
 
 from ..models.convert import jax_ndims
 from ..models.model import DistContext, Model
+from ..models.sharding import axis_size, local_slice, spec_of
 from ..optim.optimizers import Optimizer, clip_by_global_norm
-from ..tree import leaves, map_tree, unflatten
+from ..tree import leaves, leaves_with_path, map_tree, unflatten
 
 __all__ = ["loss_fn", "loss_and_grads", "make_train_step", "make_eval_step",
            "cast_for_compute"]
@@ -45,12 +68,28 @@ def loss_fn(model: Model, params, batch, *, dist: Optional[DistContext] = None,
     lse = torch.logsumexp(lg, dim=-1)
     ll = torch.gather(lg, -1, lab[..., None])[..., 0]
     nll = (lse - ll) * mask
-    ntok = torch.clamp(mask.sum(), min=1)
+    # without a mesh: one batch shard, and the sums below are the global ones
+    sharded = dist is not None and dist.mesh is not None
+    n_dp = axis_size(dist.mesh, tuple(dist.dp_axes)) if sharded else 1
+    ntok = torch.clamp(_dp_sum(mask.sum(), dist), min=1)
     ce = nll.sum() / ntok
     zl = z_loss * ((lse * mask) ** 2).sum() / ntok
-    total = ce + zl + aux_weight * aux
-    return total, {"loss": total, "ce": ce, "z_loss": zl, "aux": aux,
-                   "ntok": ntok}
+    share = ce + zl + aux_weight * aux / n_dp
+    with torch.no_grad():
+        ce_all, zl_all = _dp_sum(torch.stack([ce.detach(), zl.detach()]), dist)
+    total = ce_all + zl_all + aux_weight * aux.detach()
+    return share, {"loss": total, "ce": ce_all, "z_loss": zl_all,
+                   "aux": aux.detach(), "ntok": ntok}
+
+
+def _dp_sum(t: torch.Tensor, dist: Optional[DistContext], axes=None) -> torch.Tensor:
+    """``t`` summed in place over the mesh's batch axes (or ``axes``); as it
+    is without a mesh."""
+    if dist is None or dist.mesh is None:
+        return t
+    for ax in dist.dp_axes if axes is None else axes:
+        tdist.all_reduce(t, group=dist.mesh.get_group(ax))
+    return t
 
 
 def cast_for_compute(params, model: Model):
@@ -80,7 +119,11 @@ def loss_and_grads(model: Model, params, batch, *,
                    dist: Optional[DistContext] = None, cast_params: bool = True):
     """The gradient of :func:`loss_fn` with respect to every leaf of
     ``params`` (in the leaf's dtype; 0 for a leaf the loss does not read),
-    as a tree of ``params``' structure, and the metrics."""
+    as a tree of ``params``' structure, and the metrics.  With ``dist``,
+    ``params`` are DTensors and so are the gradients, each the global
+    gradient's block of this rank."""
+    if dist is not None and dist.mesh is not None:
+        return _sharded_loss_and_grads(model, params, batch, dist, cast_params)
     flat = [p.detach().requires_grad_(True) for p in leaves(params)]
     tree = unflatten(params, flat)
     if cast_params:
@@ -89,6 +132,51 @@ def loss_and_grads(model: Model, params, batch, *,
     grads = torch.autograd.grad(loss, flat, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, grads)]
     return unflatten(params, grads), {k: v.detach() for k, v in metrics.items()}
+
+
+EXPERTS = tuple(f"['ffn'][{w!r}]" for w in ("wi", "wg", "wo"))
+
+
+def _expert_leaves(params, dist: DistContext) -> list[bool]:
+    """Which leaves the expert-parallel path consumes as this rank's
+    slices: the experts of an MoE layer, when the mesh has the expert
+    axis."""
+    if dist.ep_axis not in (dist.mesh.mesh_dim_names or ()):
+        return [False] * len(leaves(params))
+    return [path.endswith(EXPERTS) and leaf.dim() == 3
+            for path, leaf in leaves_with_path(params)]
+
+
+def _sharded_loss_and_grads(model: Model, params, batch, dist: DistContext,
+                            cast_params: bool):
+    from torch.distributed.tensor import DTensor
+
+    mesh = dist.mesh
+    experts = _expert_leaves(params, dist)
+    with torch.no_grad():
+        comp = leaves(cast_for_compute(params, model) if cast_params else params)
+        work = [(c.to_local() if keep else c.full_tensor())
+                if isinstance(c, DTensor) else c
+                for c, keep in zip(comp, experts)]
+    work = [w.detach().requires_grad_(True) for w in work]
+    loss, metrics = loss_fn(model, unflatten(params, work), batch, dist=dist)
+    grads = torch.autograd.grad(loss, work, allow_unused=True)
+    fsdp = "data" if "data" in mesh.mesh_dim_names else dist.dp_axes[0]
+    out = []
+    with torch.no_grad():
+        for p, w, g, keep in zip(leaves(params), work, grads, experts):
+            g = torch.zeros_like(w, dtype=p.dtype) if g is None else g.to(p.dtype)
+            if keep:        # summed over the FSDP axis by the gather's backward
+                g = _dp_sum(g.contiguous(), dist, [a for a in dist.dp_axes if a != fsdp])
+            else:
+                g = _dp_sum(g.contiguous(), dist)
+                if isinstance(p, DTensor):
+                    g = local_slice(g, spec_of(p), mesh).contiguous()
+            if isinstance(p, DTensor):
+                g = DTensor.from_local(g, mesh, p.placements, run_check=False,
+                                       shape=p.shape, stride=p.stride())
+            out.append(g)
+    return unflatten(params, out), {k: v.detach() for k, v in metrics.items()}
 
 
 def make_train_step(model: Model, optimizer: Optimizer, *,
@@ -112,6 +200,8 @@ def make_train_step(model: Model, optimizer: Optimizer, *,
         with torch.no_grad():
             grads, gnorm = clip_by_global_norm(grads, clip_norm)
             params, opt_state = optimizer.update(grads, opt_state, params)
+            if hasattr(gnorm, "full_tensor"):
+                gnorm = gnorm.full_tensor()
         return params, opt_state, dict(metrics, grad_norm=gnorm)
 
     return step

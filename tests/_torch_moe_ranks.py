@@ -9,9 +9,12 @@ every case on this rank's batch shard (rows ``[i * B / n_data, (i + 1) * B
 pickles its outputs to ``<out_dir>/rank<r>.pkl``.  This module imports the
 port only, never JAX: the parent computes the JAX answers.
 
-A case is ``("layer", cfg, numpy params, numpy x)`` for ``moe_apply`` or
+A case is ``("layer", cfg, numpy params, numpy x)`` for ``moe_apply``,
 ``("prefill", cfg, numpy JAX pytree, numpy tokens, s_cache)`` for
-``Model.prefill(dist=...)``."""
+``Model.prefill(dist=...)``, or ``("grad", cfg, numpy params, numpy x,
+numpy cotangent)`` for the gradient of ``sum(y * cotangent)`` through the
+expert-parallel layer: this rank's ``x`` rows, its expert slices, and the
+other leaves summed over ``"data"``."""
 from __future__ import annotations
 
 import pickle
@@ -30,6 +33,28 @@ def _shard_rows(a, mesh):
     i = mesh.get_local_rank("data")
     rows = a.shape[0] // n
     return a[i * rows:(i + 1) * rows]
+
+
+def _grads(case, mesh) -> dict:
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models.moe import moe_apply, shard_moe_params
+    from repro_torch.tree import leaves_with_path, map_tree
+
+    _, cfg, params, x, ct = case
+    p = map_tree(lambda t: t.requires_grad_(True),
+                 shard_moe_params(_tensors(params), mesh))
+    xs = torch.from_numpy(_shard_rows(x, mesh)).requires_grad_(True)
+    y, _ = moe_apply(p, cfg, xs, mesh=mesh)
+    (y * torch.from_numpy(_shard_rows(ct, mesh))).sum().backward()
+    out = {"x": xs.grad.numpy()}
+    for path, leaf in leaves_with_path(p):
+        g = leaf.grad
+        if not any(path == f"[{w!r}]" for w in ("wi", "wg", "wo")):
+            dist.all_reduce(g, group=mesh.get_group("data"))
+        out[path] = g.numpy()
+    return out
 
 
 def run_rank(rank: int, world: int, shape: tuple, store: str, cases_path: str,
@@ -55,6 +80,8 @@ def run_rank(rank: int, world: int, shape: tuple, store: str, cases_path: str,
                 y, aux = moe_apply(p, cfg, torch.from_numpy(_shard_rows(x, mesh)),
                                    mesh=mesh)
                 out[name] = (y.numpy(), float(aux))
+            elif case[0] == "grad":
+                out[name] = _grads(case, mesh)
             else:
                 _, cfg, tree, tokens, s_cache = case
                 params = from_jax(tree, cfg, device="cpu")

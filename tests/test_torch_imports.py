@@ -40,7 +40,10 @@ CHECK = (
     "repro_torch.optim.optimizers, repro_torch.optim.tripre, repro_torch.train, "
     "repro_torch.train.steps, repro_torch.train.loop, repro_torch.data, "
     "repro_torch.data.pipeline, repro_torch.checkpoint, "
-    "repro_torch.checkpoint.manager, repro_torch.launch.train, sys; "
+    "repro_torch.checkpoint.manager, repro_torch.launch.train, "
+    "repro_torch.models.sharding, repro_torch.distributed, "
+    "repro_torch.distributed.collectives, repro_torch.distributed.compress, "
+    "repro_torch.distributed.pipeline, sys; "
     "from repro_torch.serve import (ServeEngine, Request, SolveEngine, "
     "SolveRequest, SolverRegistry, SolverEntry, pattern_key, SolveService, "
     "TenantState, LatencyHistogram); "

@@ -315,6 +315,10 @@ def _cases() -> dict:
         _, cfg = _cfgs(arch, **kw)
         out[name] = ("layer", cfg, _numpy_params(arch), _x(6, (4, 24, cfg.d_model)))
     _, cfg = configs(ARCHS[0], "float32", "float32")
+    _, cfg = _cfgs(ARCHS[0], capacity_factor=8.0)
+    x = _x(9, (4, 24, cfg.d_model))
+    out["grad"] = ("grad", cfg, _numpy_params(ARCHS[0]), x, _x(10, x.shape))
+    _, cfg = configs(ARCHS[0], "float32", "float32")
     toks = np.random.default_rng(8).integers(0, 256, (4, 12)).astype(np.int32)
     out["prefill"] = ("prefill", cfg, _tree(ARCHS[0], True, 0), toks, 16)
     return out
@@ -326,6 +330,8 @@ def _jax_answers(cases: dict) -> dict:
     with mesh:
         for name, case in cases.items():
             jcfg = jax_config.ModelConfig(**dataclasses.asdict(case[1]))
+            if case[0] == "grad":
+                continue
             if case[0] == "layer":
                 fn = jax.jit(lambda p, x, c=jcfg: jm.moe_apply(p, c, x, mesh=mesh))
                 y, aux = fn(jax.tree.map(jnp.asarray, case[2]), jnp.asarray(case[3]))
@@ -414,3 +420,32 @@ def test_expert_parallel_prefill_matches_jax(spawned):
             for leaf in ("k", "v"):
                 ref = _rows(jcache["blocks"]["p0"]["attn"][leaf][i], r["coords"])
                 assert rel(torch.from_numpy(slot[leaf]), ref) <= EP_TOL, (i, leaf)
+
+
+def test_expert_parallel_gradients_match_local(spawned):
+    """The gradient of ``sum(y * ct)`` through the expert-parallel layer
+    on the (2, 2) world, with a capacity factor of 8 (no pair dropped):
+    each rank's ``x`` rows, its expert slices (summed over data by the
+    gather's reduce-scatter, the mean over the two model ranks that send
+    the same tokens) and the router, norm and shared expert summed over
+    data, against the local layer's on the whole batch."""
+    got, _, cases = spawned
+    _, cfg, tree, x, ct = cases["grad"]
+    params = {k: v for k, v in _port(tree).items()}
+    from repro_torch.tree import leaves_with_path, map_tree
+
+    params = map_tree(lambda t: t.requires_grad_(True), params)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y, _ = pm.moe_apply(params, cfg, xt)
+    (y * torch.from_numpy(ct)).sum().backward()
+    for r in got:
+        g = r["grad"]
+        i, j = r["coords"]
+        assert rel(torch.from_numpy(g["x"]), _rows(xt.grad.numpy(), r["coords"])) <= EP_TOL
+        for path, leaf in leaves_with_path(params):
+            want = leaf.grad
+            if path in ("['wi']", "['wg']", "['wo']"):
+                E, A = want.shape[:2]
+                want = want[j * E // 2:(j + 1) * E // 2, i * A // 2:(i + 1) * A // 2]
+            assert float(want.abs().max()) > 0, path
+            assert rel(torch.from_numpy(g[path]), want) <= EP_TOL, (path, r["coords"])

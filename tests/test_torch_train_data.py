@@ -122,7 +122,36 @@ def test_checkpoint_manager_atomic_and_gc(tmp_path):
     assert man["step"] == 15 and torch.equal(got["x"], torch.zeros(3))
     with pytest.raises(ValueError, match="shape"):
         mgr.restore({"x": torch.zeros(4)})
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        mgr.restore({"x": torch.zeros(3)}, shardings={"x": None})
+    got, _ = mgr.restore({"x": torch.zeros(3)}, shardings={"x": None})
+    assert torch.equal(got["x"], torch.ones(3))        # None: unsharded
     with pytest.raises(FileNotFoundError):
         CheckpointManager(str(tmp_path / "empty")).restore({"x": torch.zeros(3)})
+
+
+def test_restore_onto_shardings_of_a_one_rank_mesh(tmp_path):
+    """``restore(shardings=)`` puts each leaf with a sharding on the mesh as
+    a DTensor (its block: the whole leaf on one rank) and a leaf or subtree
+    whose sharding is None whole; a save of the DTensor tree writes the
+    unsharded save's files."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import destroy_process_group, make_mesh
+    from repro_torch.models.sharding import P, NamedSharding
+
+    tree = {"w": torch.arange(12.0).reshape(4, 3), "opt": {"s": torch.ones(2)}}
+    CheckpointManager(str(tmp_path / "a")).save(tree, 1)
+    mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+    try:
+        got, man = CheckpointManager(str(tmp_path / "a")).restore(
+            {"w": torch.zeros(4, 3), "opt": {"s": torch.zeros(2)}},
+            shardings={"w": NamedSharding(mesh, P("data", "model")), "opt": None})
+        assert isinstance(got["w"], DTensor) and not isinstance(got["opt"]["s"], DTensor)
+        assert torch.equal(got["w"].full_tensor(), tree["w"])
+        CheckpointManager(str(tmp_path / "b")).save(got, 1)
+    finally:
+        destroy_process_group()
+    with np.load(tmp_path / "a" / "step_1" / "arrays.npz") as a, \
+            np.load(tmp_path / "b" / "step_1" / "arrays.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            assert np.array_equal(a[k], b[k])

@@ -2,7 +2,9 @@
 tests (``tests/test_train_substrate.py``) on the port (each optimizer
 lowers the loss, tripre stays bounded, a failed step rolls back and a new
 trainer resumes), then ``launch.train`` and ``launch.serve --ckpt`` on a
-trained checkpoint, and what waits for the mesh and sharding layer."""
+trained checkpoint, and the trainer and launcher where no world of ranks
+shards them (``tests/test_torch_train_sharded.py`` holds the sharded
+runs)."""
 import numpy as np
 import pytest
 import torch
@@ -129,10 +131,44 @@ def test_launcher_resumes_its_directory(tmp_path):
     assert out["final_step"] == 3 and len(out["history"]) == 1
 
 
-def test_what_waits_for_the_sharding_layer(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        train.main(["--smoke", "--device", "cpu", "--model-parallel", "2"])
+def test_launcher_trains_unsharded_in_a_world_of_one(tmp_path, monkeypatch):
+    """As the JAX launcher: without a world above one, ``--model-parallel``
+    builds no mesh."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    args = ["--smoke", "--device", "cpu", "--seq", "16", "--batch", "2",
+            "--steps", "1", "--ckpt-dir", str(tmp_path)]
+    out = train.main(args + ["--model-parallel", "2"])
+    assert out["mesh"] is None and out["final_step"] == 1
+    assert out["history"] == train.main(args + ["--resume", "none"])["history"]
+
+
+def test_trainer_on_a_mesh_of_one_rank_matches_unsharded(tmp_path):
+    """``Trainer(mesh=)`` on a (1, 1) gloo mesh: DTensor parameters and
+    state, the same losses as the trainer without a mesh (a one-rank
+    collective is the identity), and a checkpoint an unsharded trainer
+    resumes."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import destroy_process_group, make_mesh
+
     model, cfg = _model()
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        Trainer(model, get_optimizer("sgd"), SyntheticLM(cfg.vocab_size, 8, 2),
-                TrainConfig(ckpt_dir=str(tmp_path)), mesh=object())
+    data = SyntheticLM(cfg.vocab_size, 16, 2, seed=4)
+
+    def run(mesh, d, steps=2):
+        tc = TrainConfig(steps=steps, ckpt_every=2, ckpt_dir=str(d))
+        trainer = Trainer(model, get_optimizer("adamw", lr=1e-3, total_steps=10),
+                          data, tc, mesh=mesh)
+        return trainer, trainer.run()
+
+    _, want = run(None, tmp_path / "plain")
+    mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+    try:
+        trainer, got = run(mesh, tmp_path / "mesh")
+        params, state, _ = trainer.init_state()
+        assert isinstance(params["layers"][0]["mix"]["q"]["w"], DTensor)
+        assert isinstance(state["m"]["embed"]["tok"], DTensor)
+    finally:
+        destroy_process_group()
+    assert got["history"] == want["history"]
+    _, resumed = run(None, tmp_path / "mesh", steps=3)
+    assert len(resumed["history"]) == 1 and resumed["final_step"] == 3
